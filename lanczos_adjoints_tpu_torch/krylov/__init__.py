@@ -1,0 +1,1 @@
+"""krylov of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""precond of the PyTorch port (see the package docstring)."""

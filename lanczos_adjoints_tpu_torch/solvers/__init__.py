@@ -1,0 +1,1 @@
+"""solvers of the PyTorch port (see the package docstring)."""

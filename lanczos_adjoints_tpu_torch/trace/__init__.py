@@ -1,0 +1,1 @@
+"""trace of the PyTorch port (see the package docstring)."""

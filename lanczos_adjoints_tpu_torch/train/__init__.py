@@ -1,0 +1,1 @@
+"""train of the PyTorch port (see the package docstring)."""
