@@ -18,12 +18,33 @@ Phases, in order:
   5. the slice: Adam steps of the GP training step at N_train = 400,000
      (the reference's largest configuration), with per-step K1/K2
      launch counts;
-  6. kernel times at the slice's shapes (CUDA events) beside their
-     bounds and their plain versions' times, as one JSON line.
+  6. DIA parity: K4 (``csrc/dia.cu``), K4 on the transpose (through the
+     autograd backward) and K5 against their plain versions, offsets
+     (-1, 0, 1), (-130, -7, 0, 7, 130) with random values in every slot,
+     and the 2-D Laplacian's with its packed values, n in {16,384,
+     1,000,000, 1,048,576};
+  7. Lanczos parity: K6 and K7 (``csrc/lanczos_dia.cu``) against their
+     plain versions (alphas, betas, basis, residual, dv, dvals for a
+     seeded random cotangent) at (n, K) = (4,736, 12), (4,739, 12),
+     (16,384, 90), (1,048,576, 90) and on an exhausted Krylov space,
+     with each tolerance derived from the plain version's
+     float32-vs-float64 spread; the autograd Function equals the two
+     wrappers bit for bit;
+  8. the sparse slice: ``bench.py``'s flow through the port's entry
+     points (the Laplacian on an m x m grid -> ``sparse_operator`` ->
+     ``tridiag_dia_fused`` and the generic ``tridiag``), one VJP with the
+     all-ones cotangent per route at m = 128, 1,000 and 1,024, with
+     launches per VJP, the dispatch log, fused vs generic, and VJP wall
+     times;
+  9. kernel times at the slices' shapes beside their bounds, their
+     plain versions' times and (K4) one library call, each held to its
+     plain version again, as one JSON line. K4 and K5 cycle through
+     operand sets larger than the L2 together, as the main path does.
 The last two lines are the card (``name, power.limit``) and
 ``{"ok": true, "device": {...}}``.
 """
 
+import itertools
 import json
 import subprocess
 import sys
@@ -42,9 +63,33 @@ PEAK_BYTES = 3.35e12
 TOL_K1 = 1e-4
 TOL_K2 = 1e-3  # sums over millions of cells of both signs
 
+# DIA kernels (K4 and its transpose) vs plain: an output is a sum of
+# D <= 5 float32 products taken in another order, with fused
+# multiply-adds, so a few units in the last place of the largest term.
+TOL_DIA = 1e-5
+# K5 is one float32 product per slot on both sides: bit for bit.
+TOL_DVALS = 0.0
+# Lanczos without re-orthogonalisation amplifies rounding with depth, so
+# a fixed number would either pass anything or fail on rounding alone.
+# The kernel and the plain float32 version each differ from exact
+# arithmetic by about the plain version's float32-vs-float64 spread, so
+# they may differ from each other by twice it; the limit is 10x the
+# spread measured at the same inputs, and never below 1e-6 (a few ulps,
+# for the exactly representable cases where the spread is 0).
+SPREAD_FACTOR = 10.0
+SPREAD_FLOOR = 1e-6
+
 # The reference's largest run: N_train = 400,000 (the JAX driver's adj400k).
 N_TRAIN = 400_000
 DEVICE = "cuda"
+# The sparse slice: bench.py's Lanczos depth, its 128 x 128 grid and the
+# 1024 x 1024 grid (the largest DIA case the JAX package was run at).
+DEPTH = 90
+GRIDS = (128, 1024)
+# The sparse slice also runs the 1000 x 1000 grid: n = 1,000,000 is a
+# multiple of neither 128 nor 1024, the JAX kernels' tiling rules, and on
+# the card must still run every kernel of the path.
+SLICE_GRIDS = (128, 1000, 1024)
 
 
 def _card_line() -> str:
@@ -137,17 +182,6 @@ def phase_parity(device="cuda", rows=(3001, 2777), kinds=("rbf", "matern12", "ma
         raise RuntimeError(msg)
 
 
-def _events_ms(fn, reps):
-    """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events."""
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def _plain_policy():
     """The fused policy's shape with the plain, autograd-differentiated matvec."""
     from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
@@ -229,7 +263,7 @@ def phase_oracle(n=2048):
 
 def phase_slice(n_train, steps):
     """Adam steps of the training step at the reference's largest configuration."""
-    from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
+    from lanczos_adjoints_tpu_torch.ops import native
     from lanczos_adjoints_tpu_torch.train import gp as train_gp
 
     X, y = _data(n_train)
@@ -240,17 +274,17 @@ def phase_slice(n_train, steps):
     params = torch.randn(stack.num_params, generator=torch.Generator().manual_seed(1))
     opt = train_gp.AdamIfFinite(params.to(DEVICE).requires_grad_(), lr=0.05)
     key = torch.Generator(device=DEVICE).manual_seed(1)
-    for k in fg.KERNELS:
-        k.launches = 0
+    gram = (native.KERNELS["gram_matvec"], native.KERNELS["gram_grads"])
+    native.reset_launches()
     per_step, times = [], []
     for step in range(steps):
-        before = [k.launches for k in fg.KERNELS]
+        before = [k.launches for k in gram]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         value, info, grad, applied = train_gp.train_step(stack, opt, key, X, y)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = [k.launches - b for k, b in zip(fg.KERNELS, before)]
+        counts = [k.launches - b for k, b in zip(gram, before)]
         per_step.append(counts)
         times.append(seconds)
         finite = bool(torch.isfinite(grad).all()) and bool(torch.isfinite(value))
@@ -260,7 +294,7 @@ def phase_slice(n_train, steps):
               f"K1 {counts[0]} K2 {counts[1]}", flush=True)
         if not finite or min(counts) == 0:
             raise RuntimeError(f"slice step {step} failed (finite={finite}, launches={counts})")
-    totals = [k.launches for k in fg.KERNELS]
+    totals = [k.launches for k in gram]
     print(f"  launches over {steps} steps: K1 {totals[0]}, K2 {totals[1]}; "
           f"step wall times {[round(t, 3) for t in times]}")
     return {"launches": totals, "per_step": per_step, "step_s": times}
@@ -273,8 +307,9 @@ def _cell_ops(kernel, m, d=8):
 
 
 def phase_timing(n, slice_counts):
-    """Kernel and plain times at the slice's shapes, and the kernels line."""
+    """Gram kernel and plain times at the GP slice's shapes; their kernels-line entries."""
     from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
+    from lanczos_adjoints_tpu_torch.utils.timing import events_ms
 
     print(f"[timing] N=M={n}, matern32, d=8 (CUDA events)", flush=True)
     g = torch.Generator(device=DEVICE).manual_seed(2)
@@ -296,11 +331,11 @@ def phase_timing(n, slice_counts):
                 plain = lambda: fg.gram_grads_plain("matern32", xs, xs, v, u)  # noqa: E731
                 nbytes = 4 * (2 * n * 8 + 2 * n * m + (n // 64 + 1) * 9)
             got = run()  # warm-up, and the value held against the plain one
-            ms = _events_ms(run, 2)
+            ms = events_ms(run, 2)
             # One timed plain run: it loops over thousands of row chunks,
             # so its first chunk's warm-up is lost in the total.
             want = []
-            plain_ms = _events_ms(lambda: want.append(plain()), 1)
+            plain_ms = events_ms(lambda: want.append(plain()), 1)
             want = want[0]
             err = float((got - want).abs().max())
             rel = err / float(want.abs().max())
@@ -336,7 +371,480 @@ def phase_timing(n, slice_counts):
             "n": n, "m": main_m,
             "by_m": [shapes[(kernel, m)] for m in kinds[kernel]],
         })
-    print(json.dumps({"kernels": entries}), flush=True)
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# The sparse slice: DIA matvec (K4, K5) and fused Lanczos (K6, K7)
+# ---------------------------------------------------------------------------
+
+
+def _dia(offsets, n):
+    from lanczos_adjoints_tpu_torch.ops import sparse
+
+    empty = np.zeros(0, dtype=np.int64)
+    return sparse.DIAData(offsets=tuple(offsets), shape=(n, n), nnz=0,
+                          diag_of_entry=empty, pos_of_entry=empty)
+
+
+def _laplacian(m, device=None):
+    """The m x m grid Laplacian: (DIAData, packed float32 values on the card)."""
+    from lanczos_adjoints_tpu_torch.ops import sparse
+    from lanczos_adjoints_tpu_torch.utils import test_util
+
+    mat = test_util.laplacian_2d(m)
+    dia = sparse.dia_pack(mat)
+    return mat, dia, sparse.dia_values(dia, mat.data, device=device or DEVICE)
+
+
+def _tensor(rng, shape, device=None):
+    return torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=device or DEVICE)
+
+
+def _spread_tol(spread):
+    return max(SPREAD_FACTOR * spread, SPREAD_FLOOR)
+
+
+def _report_spread(label, err, spread, failures):
+    tol = _spread_tol(spread)
+    status = "ok" if err <= tol else "FAIL"
+    print(f"  {label}: max rel err {err:.3e}; plain f32 vs f64 {spread:.3e}; "
+          f"tol {tol:.3e} {status}", flush=True)
+    if not err <= tol:
+        failures.append(label)
+
+
+def phase_parity_dia(sizes=(16_384, 1_000_000, 1 << 20)):
+    """K4, K4 on the transpose (autograd backward) and K5 against their plain versions."""
+    from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
+
+    print("[parity-dia] DIA kernels vs plain versions on the card", flush=True)
+    failures = []
+    rng = np.random.default_rng(3)
+    for n in sizes:
+        m = int(round(n ** 0.5))
+        _mat, lap, lap_vals = _laplacian(m)
+        cases = [
+            ("(-1,0,1) random", (-1, 0, 1), None),
+            ("(-130,-7,0,7,130) random", (-130, -7, 0, 7, 130), None),
+            (f"laplacian {lap.offsets} packed", lap.offsets, lap_vals),
+        ]
+        for name, offsets, vals in cases:
+            if vals is None:  # non-zero values in every slot, the wrapped ones too
+                vals = _tensor(rng, (len(offsets), n))
+            x, u = _tensor(rng, n), _tensor(rng, n)
+            tag = f"n={n} {name}"
+            got = fd.dia_matvec_rows(offsets, x, vals)
+            want = fd.dia_matvec_plain(offsets, x, vals)
+            torch.cuda.synchronize()
+            _report(f"K4 {tag}", _rel_err(got, want), TOL_DIA, failures)
+            got = fd.dia_dvals_rows(offsets, x, u)
+            want = fd.dia_dvals_plain(offsets, x, u)
+            torch.cuda.synchronize()
+            _report(f"K5 {tag}", _rel_err(got, want), TOL_DVALS, failures)
+
+            # The Function's backward (K4 on the transpose, K5) against
+            # autograd through the plain roll form.
+            grads = []
+            for fn in (fd.dia_matvec_fused(_dia(offsets, n), check_tiling=False),
+                       lambda v, p: fd.dia_matvec_plain(offsets, v, p)):
+                args = [x.clone().requires_grad_(), vals.clone().requires_grad_()]
+                grads.append(torch.autograd.grad(fn(*args), args, u))
+            torch.cuda.synchronize()
+            _report(f"K4^T vjp dv {tag}", _rel_err(grads[0][0], grads[1][0]), TOL_DIA, failures)
+            _report(f"K5 vjp dvals {tag}", _rel_err(grads[0][1], grads[1][1]), TOL_DVALS, failures)
+    if failures:
+        msg = f"{len(failures)} DIA parity checks failed: {failures[:5]}"
+        raise RuntimeError(msg)
+
+
+def _cotangent(rng, depth, n):
+    """A seeded random cotangent of every output of the decomposition."""
+    return (_tensor(rng, (depth, n)), _tensor(rng, depth), _tensor(rng, depth - 1),
+            _tensor(rng, n), _tensor(rng, ()))
+
+
+def _flat_outputs(out):
+    (xs, (alphas, betas)), (x_res, beta_res) = out
+    return xs, alphas, betas, x_res, beta_res
+
+
+def _lanczos_cases():
+    """(name, dia, vals, v0, depth) for the Lanczos parity phase."""
+    from lanczos_adjoints_tpu_torch.ops import sparse
+
+    rng = np.random.default_rng(4)
+    # 37 x 128, a multiple of 128 that is not one of 1024; and 4,739, a
+    # multiple of neither (the kernels take any n).
+    for n in (4_736, 4_739):
+        idx = np.arange(n)
+        mat = sparse.csr_from_coo(  # the tridiagonal 2.5 / -1 of the JAX kernel's tests
+            np.concatenate([idx, idx[:-1], idx[1:]]), np.concatenate([idx, idx[1:], idx[:-1]]),
+            np.concatenate([2.5 * np.ones(n), -np.ones(n - 1), -np.ones(n - 1)]), shape=(n, n),
+        )
+        dia = sparse.dia_pack(mat)
+        vals = sparse.dia_values(dia, mat.data, device=DEVICE)
+        yield f"tridiagonal n={n} K=12", dia, vals, _tensor(rng, n), 12
+    for m in GRIDS:
+        _mat, dia, vals = _laplacian(m)
+        yield f"laplacian n={m * m} K={DEPTH}", dia, vals, _tensor(rng, m * m), DEPTH
+    # An exhausted Krylov space: A = 1.5 I and a one-hot v0 give an exactly
+    # zero residual at step 0, so every later beta and basis vector is
+    # the guarded zero.
+    n = 16_384
+    dia = _dia((0,), n)
+    v0 = torch.zeros(n, device=DEVICE)
+    v0[7] = 1.0
+    yield "exhausted (1.5 I, one-hot v0) n=16384 K=12", dia, torch.full((1, n), 1.5, device=DEVICE), v0, 12
+
+
+def phase_parity_lanczos():
+    """K6 and K7 against their plain versions, tolerances from the f32-vs-f64 spread."""
+    from lanczos_adjoints_tpu_torch.ops import fused_lanczos as fl
+
+    print("[parity-lanczos] fused Lanczos kernels vs plain versions on the card", flush=True)
+    failures = []
+    rng = np.random.default_rng(5)
+    for name, dia, vals, v0, depth in _lanczos_cases():
+        offsets, n = dia.offsets, dia.shape[0]
+        kernel = fl.lanczos_forward_rows(offsets, vals, v0, depth)
+        plain = fl.lanczos_forward_plain(offsets, vals, v0, depth)
+        exact = fl.lanczos_forward_plain(offsets, vals.double(), v0.double(), depth)
+        torch.cuda.synchronize()
+        for label, pick in (("alphas", lambda r: r[1]), ("betas", lambda r: r[2]),
+                            ("basis", lambda r: r[0][:-1]), ("residual", lambda r: r[0][-1])):
+            _report_spread(f"K6 {label} {name} kernel vs plain", _rel_err(pick(kernel), pick(plain)),
+                           _rel_err(pick(plain), pick(exact)), failures)
+        if float(plain[2][1:].abs().max()) == 0.0:
+            ok = float(kernel[2].abs().max()) == 0.0 and float(kernel[0][1:].abs().max()) == 0.0
+            print(f"  K6 guard {name}: betas and basis rows 1.. exactly zero: {ok}")
+            if not ok:
+                failures.append(f"K6 guard {name}")
+
+        # The adjoint on the plain forward's decomposition, so that it is
+        # compared on identical inputs; float64 on the same values upcast.
+        cot = _cotangent(rng, depth, n)
+        xs, alphas, betas = plain
+        dxs = torch.cat([cot[0], cot[3][None]])
+        dbetas = torch.cat([cot[2], cot[4][None]])
+        inv_norm = 1.0 / torch.linalg.vector_norm(v0)
+        args = (xs, alphas, betas, inv_norm, dxs, cot[1], dbetas)
+        got = fl.lanczos_adjoint_rows(offsets, vals, *args)
+        want = fl.lanczos_adjoint_plain(offsets, vals, *args)
+        exact = fl.lanczos_adjoint_plain(offsets, vals.double(), *(a.double() for a in args))
+        torch.cuda.synchronize()
+        for label, i in (("dv", 0), ("dvals", 1)):
+            _report_spread(f"K7 {label} {name} kernel vs plain", _rel_err(got[i], want[i]),
+                           _rel_err(want[i], exact[i]), failures)
+
+        # The autograd Function (K6 forward, K7 backward) against the two
+        # wrappers on the same inputs: deterministic kernels, so bit for
+        # bit. Both stream values call the same code; one pass suffices.
+        estimate = fl.tridiag_dia_fused(dia, depth, stream=True, check_tiling=False)
+        inputs = [v0.clone().requires_grad_(), vals.clone().requires_grad_()]
+        outputs = _flat_outputs(estimate(*inputs))
+        grads = torch.autograd.grad(outputs, inputs, cot)
+        xs_k, alphas_k, betas_k = kernel
+        direct = fl.lanczos_adjoint_rows(offsets, vals, xs_k, alphas_k, betas_k, *args[3:])
+        torch.cuda.synchronize()
+        same_fwd = torch.equal(outputs[0], xs_k[:-1]) and torch.equal(outputs[1], alphas_k)
+        same_bwd = all(torch.equal(a, b) for a, b in zip(grads, direct))
+        print(f"  Function {name}: forward == K6 wrapper bitwise {same_fwd}, "
+              f"backward == K7 wrapper bitwise {same_bwd}", flush=True)
+        if not (same_fwd and same_bwd):
+            failures.append(f"Function {name}")
+        del kernel, plain, exact, got, want, cot, args, outputs, grads, direct
+    if failures:
+        msg = f"{len(failures)} Lanczos parity checks failed: {failures[:5]}"
+        raise RuntimeError(msg)
+
+
+def _one_vjp(estimate, v0, vals):
+    """One forward + VJP with the all-ones cotangent, as bench.py does."""
+    inputs = [v0.clone().requires_grad_(), vals.clone().requires_grad_()]
+    outputs = _flat_outputs(estimate(*inputs))
+    return torch.autograd.grad(outputs, inputs, [torch.ones_like(o) for o in outputs])
+
+
+DIA_KERNELS = ("dia_matvec", "dia_matvec_transposed", "dia_dvals",
+               "lanczos_dia_forward", "lanczos_dia_adjoint")
+
+
+def phase_slice_sparse(m):
+    """bench.py's flow through the port's public entry points at an m x m grid."""
+    from lanczos_adjoints_tpu_torch.krylov import lanczos
+    from lanczos_adjoints_tpu_torch.ops import fused_lanczos as fl
+    from lanczos_adjoints_tpu_torch.ops import native, sparse
+    from lanczos_adjoints_tpu_torch.utils import test_util
+    from lanczos_adjoints_tpu_torch.utils.timing import events_ms
+
+    mat = test_util.laplacian_2d(m)
+    matvec, _values, info = sparse.sparse_operator(mat, with_info=True, device=DEVICE)
+    dia = sparse.dia_pack(mat)
+    vals = sparse.dia_values(dia, mat.data, device=DEVICE)
+    v0 = torch.ones(mat.shape[0], device=DEVICE)
+    print(f"[slice-sparse] {m}x{m} Laplacian: n={mat.shape[0]} nnz={mat.nnz} "
+          f"format={info.format} fill={info.fill_efficiency:.4f} offsets={dia.offsets} "
+          f"K={DEPTH}, one VJP with the all-ones cotangent", flush=True)
+    log_generic, log_default = [], []
+    routes = {
+        # K6/K7 take any n: the JAX kernel's n % 128 rule is not checked.
+        "fused": fl.tridiag_dia_fused(dia, DEPTH, check_tiling=False),
+        "generic": lanczos.tridiag(matvec, DEPTH, reortho="none", allow_fused=False,
+                                   dispatch_log=log_generic),
+        "default": lanczos.tridiag(matvec, DEPTH, reortho="none", dispatch_log=log_default),
+    }
+    expected = {
+        "fused": {"lanczos_dia_forward": 1, "lanczos_dia_adjoint": 1},
+        "generic": {"dia_matvec": 2 * DEPTH, "dia_dvals": DEPTH},
+        "default": {"lanczos_dia_forward": 1, "lanczos_dia_adjoint": 1},
+    }
+    failures, grads, launches = [], {}, {}
+    for route, estimate in routes.items():
+        native.reset_launches()
+        grads[route] = _one_vjp(estimate, v0, vals)
+        torch.cuda.synchronize()
+        counts = native.launch_counts()
+        launches[route] = {k: counts[k] for k in DIA_KERNELS}
+        want = {k: expected[route].get(k, 0) for k in DIA_KERNELS}
+        dv = grads[route][0]
+        finite = bool(torch.isfinite(dv).all()) and bool(torch.isfinite(grads[route][1]).all())
+        nonzero = float(dv.abs().max()) > 0.0
+        ok = launches[route] == want and finite and nonzero
+        print(f"  {route}: launches per VJP {launches[route]} (predicted {want}); "
+              f"dv finite {finite} non-zero {nonzero} max|dv| {float(dv.abs().max()):.6e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(route)
+    print(f"  dispatch log: generic {log_generic}, default {log_default}")
+    if log_generic != ["tridiag:generic"] or log_default != ["tridiag:dia_fused"]:
+        failures.append("dispatch log")
+
+    # Fused vs generic, against the spread of the plain version (float32
+    # vs float64) on the same inputs and cotangent.
+    offsets = dia.offsets
+    spreads = []
+    for dtype in (torch.float32, torch.float64):
+        xs, alphas, betas = fl.lanczos_forward_plain(offsets, vals.to(dtype), v0.to(dtype), DEPTH)
+        ones = torch.ones_like(xs)
+        spreads.append(fl.lanczos_adjoint_plain(
+            offsets, vals.to(dtype), xs, alphas, betas, 1.0 / torch.linalg.vector_norm(v0.to(dtype)),
+            ones, torch.ones_like(alphas), torch.ones_like(betas)))
+    for label, i in (("dv", 0), ("dvals", 1)):
+        _report_spread(f"fused vs generic {label} m={m}", _rel_err(grads["fused"][i], grads["generic"][i]),
+                       _rel_err(spreads[0][i], spreads[1][i]), failures)
+    same = torch.equal(grads["fused"][0], grads["default"][0])
+    print(f"  default dispatch == fused bitwise: {same}")
+    if not same:
+        failures.append("default vs fused")
+    if failures:
+        raise RuntimeError(f"sparse slice m={m} failed: {failures}")
+
+    times, profiles = {}, {}
+    for route in ("fused", "generic"):
+        times[route] = events_ms(lambda r=route: _one_vjp(routes[r], v0, vals), 5)
+        print(f"  VJP wall time {route}: {times[route]:.3f} ms (CUDA events, mean of 5 after warm-up)",
+              flush=True)
+    for route in ("fused", "generic"):
+        profiles[route] = _print_profile(route, lambda r=route: _one_vjp(routes[r], v0, vals))
+    return {"launches": launches, "vjp_ms": times, "profile": profiles,
+            "n": mat.shape[0], "nnz": mat.nnz}
+
+
+def _short(name):
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0][:60]
+
+
+def _print_profile(label, fn):
+    """One run of ``fn`` under the profiler: device busy time, idle share, top kernels."""
+    from lanczos_adjoints_tpu_torch.utils.timing import device_profile
+
+    wall_ms, kernels = device_profile(fn)
+    if not kernels:
+        print(f"  profile {label}: the profiler saw no device activity; device time not measured")
+        return None
+    busy = sum(t for _count, t in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
+    print(f"  profile {label} (one run under torch.profiler): wall {wall_ms:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {1.0 - busy / wall_ms:.3f}; top: "
+          + "; ".join(f"{_short(name)} x{c} {t:.3f} ms" for name, (c, t) in top), flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "top": [[_short(name), c, t] for name, (c, t) in top], "kernels": kernels}
+
+
+def _per_launch_ms(kernels, symbol):
+    """Mean device ms per launch of the kernels whose name holds ``symbol``, or None."""
+    mine = [ct for name, ct in kernels.items() if symbol in name]
+    return sum(t for _c, t in mine) / sum(c for c, _t in mine) if mine else None
+
+
+def _bound(nbytes, ops):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FLOPS_FP32
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+# Distinct operand sets that a timed K4/K5 call cycles through: 8 x 29 MB
+# at n = 1,048,576, so that about 200 MB pass through the 50 MB L2
+# between two uses of one set and every launch reads its operands from
+# device memory, as in the main path (where each step brings a new x).
+ROTATE_SETS = 8
+
+
+def _rotating(fns):
+    """One callable that runs ``fns`` in turn, the next one at each call."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def phase_timing_sparse(slices):
+    """Per-launch times of K4-K7 at the sparse slice's shapes; their kernels-line entries."""
+    from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
+    from lanczos_adjoints_tpu_torch.ops import fused_lanczos as fl
+    from lanczos_adjoints_tpu_torch.utils.timing import device_profile, events_ms
+
+    print("[timing-sparse] DIA kernels at the slice's shapes (profiler and CUDA events)", flush=True)
+    rng = np.random.default_rng(6)
+    rows, failures = {}, []
+
+    def record(key, symbol, runs, plains, nbytes, ops, reps, plain_reps, *, tols=None,
+               exact=None, library=None):
+        """Time ``runs`` (and ``plains``, ``library``) in rotation over their
+        operand sets; hold set 0's kernel result to its plain one, output
+        by output, within ``tols`` or, given the float64 plain result
+        ``exact``, within the spread-derived limit."""
+        got = runs[0]()  # warm-up, and the value held against the plain one
+        want = plains[0]()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if exact is not None:
+            tols = [_spread_tol(_rel_err(w, e)) for w, e in zip(want, exact())]
+        torch.cuda.synchronize()
+        run, plain = _rotating(runs), _rotating(plains)
+        ms_events = events_ms(run, reps)
+        plain_ms = events_ms(plain, plain_reps)
+        # The kernel's own device time per launch, without the host's
+        # share of back-to-back launches, where the profiler sees it.
+        _wall, kernels = device_profile(lambda: [run() for _ in range(reps)])
+        ms_device = _per_launch_ms(kernels, symbol)
+        ms = ms_device if ms_device is not None else ms_events
+        library_ms = library_events = None
+        if library is not None:
+            lib = _rotating(library)
+            lib()
+            library_events = events_ms(lib, reps)
+            # Device time of the whole call (all its kernels), as for K4.
+            _wall, lib_kernels = device_profile(lambda: [lib() for _ in range(reps)])
+            busy = sum(t for _c, t in lib_kernels.values())
+            library_ms = busy / reps if lib_kernels else library_events
+        abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        rel = [_rel_err(a, b) for a, b in zip(got, want)]
+        ok = all(r <= t for r, t in zip(rel, tols))
+        if not ok:
+            failures.append(key)
+        bound_ms, by = _bound(nbytes, ops)
+        rows[key] = {"ms": ms, "ms_events": ms_events, "ms_device": ms_device,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                     "library_ms": library_ms, "library_ms_events": library_events,
+                     "max_abs_err": abs_err, "rel_errs": rel, "rel_limits": list(tols),
+                     "operand_sets": len(runs)}
+        lib = (f", library {library_ms:.4f} ms on the device ({library_events:.4f} ms by events)"
+               if library is not None else "")
+        dev = f"{ms_device:.4f} ms" if ms_device is not None else "not measured"
+        print(f"  {key}: kernel {dev} on the device ({ms_events:.4f} ms by events back to back, "
+              f"{len(runs)} operand sets), plain {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms "
+              f"({by}); max abs err {abs_err:.3e}, rel errs "
+              + ", ".join(f"{r:.2e} (limit {t:.2e})" for r, t in zip(rel, tols))
+              + (" ok" if ok else " FAIL"), flush=True)
+
+    m = GRIDS[-1]
+    mat, dia, vals = _laplacian(m)
+    n, offsets, num_diags = mat.shape[0], dia.offsets, len(dia.offsets)
+    sets = [(_tensor(rng, n), vals.clone(), _tensor(rng, n)) for _ in range(ROTATE_SETS)]
+    # Yardstick only (the port never calls it): cuSPARSE through one
+    # PyTorch call on the same Laplacian; its wrapped DIA slots are zero,
+    # so it computes the same product.
+    csr = torch.sparse_csr_tensor(
+        torch.tensor(mat.indptr, device=DEVICE), torch.tensor(mat.indices, device=DEVICE),
+        torch.tensor(mat.data, dtype=torch.float32, device=DEVICE), size=mat.shape,
+        check_invariants=True,
+    )
+    x0 = sets[0][0]
+    lib_err = _rel_err(csr @ x0, fd.dia_matvec_rows(offsets, x0, vals))
+    print(f"  library CSR product vs K4: max rel err {lib_err:.3e}")
+    record(("K4", n), "dia_matvec_kernel",
+           [lambda s=s: fd.dia_matvec_rows(offsets, s[0], s[1]) for s in sets],
+           [lambda s=s: fd.dia_matvec_plain(offsets, s[0], s[1]) for s in sets],
+           4 * (num_diags + 2) * n, 2 * num_diags * n, 48, 8, tols=(TOL_DIA,),
+           library=[lambda s=s: csr @ s[0] for s in sets])
+    record(("K5", n), "dia_dvals_kernel",
+           [lambda s=s: fd.dia_dvals_rows(offsets, s[0], s[2]) for s in sets],
+           [lambda s=s: fd.dia_dvals_plain(offsets, s[0], s[2]) for s in sets],
+           4 * (num_diags + 2) * n, num_diags * n, 48, 8, tols=(TOL_DVALS,))
+    del sets, csr
+    for m in GRIDS:
+        _mat, dia, vals = _laplacian(m)
+        n, offsets = dia.shape[0], dia.offsets
+        v0 = torch.ones(n, device=DEVICE)
+        xs, alphas, betas = fl.lanczos_forward_plain(offsets, vals, v0, DEPTH)
+        cot = _cotangent(rng, DEPTH, n)
+        args = (xs, alphas, betas, 1.0 / torch.linalg.vector_norm(v0),
+                torch.cat([cot[0], cot[3][None]]), cot[1], torch.cat([cot[2], cot[4][None]]))
+        reps = 5 if n > 100_000 else 20
+        # One operand set: at n = 1M the basis alone is 8x the L2; at
+        # n = 16,384 everything fits in L2 on the main path as well.
+        # Operations per row and step: the matvec 2D, the dots and
+        # updates 9 (K6); the matvec and dvals 4D, dots and updates 16 (K7).
+        record(("K6", n), "lanczos_forward_kernel",
+               [lambda: fl.lanczos_forward_rows(offsets, vals, v0, DEPTH)],
+               [lambda: fl.lanczos_forward_plain(offsets, vals, v0, DEPTH)],
+               4 * (num_diags + 1 + DEPTH + 1) * n, DEPTH * (2 * num_diags + 9) * n, reps, 2,
+               exact=lambda: fl.lanczos_forward_plain(offsets, vals.double(), v0.double(), DEPTH))
+        record(("K7", n), "lanczos_adjoint_kernel",
+               [lambda: fl.lanczos_adjoint_rows(offsets, vals, *args)],
+               [lambda: fl.lanczos_adjoint_plain(offsets, vals, *args)],
+               4 * (2 * (DEPTH + 1) + 2 * num_diags + 1) * n, DEPTH * (4 * num_diags + 16) * n,
+               reps, 2,
+               exact=lambda: fl.lanczos_adjoint_plain(offsets, vals.double(),
+                                                      *(a.double() for a in args)))
+        del xs, cot, args
+    if failures:
+        raise RuntimeError(f"kernels disagree with their plain versions in [timing-sparse]: {failures}")
+
+    big = GRIDS[-1] ** 2
+    full = slices[GRIDS[-1]]
+    meta = (
+        ("K4", "dia_matvec", "dia_matvec_kernel", "lanczos_adjoints_tpu_torch/csrc/dia.cu",
+         "lanczos_adjoints_tpu/ops/pallas_dia.py:84", "generic"),
+        ("K5", "dia_dvals", "dia_dvals_kernel", "lanczos_adjoints_tpu_torch/csrc/dia.cu",
+         "lanczos_adjoints_tpu/ops/pallas_dia.py:94", "generic"),
+        ("K6", "lanczos_dia_forward", "lanczos_forward_kernel",
+         "lanczos_adjoints_tpu_torch/csrc/lanczos_dia.cu",
+         "lanczos_adjoints_tpu/ops/pallas_lanczos.py:59", "fused"),
+        ("K7", "lanczos_dia_adjoint", "lanczos_adjoint_kernel",
+         "lanczos_adjoints_tpu_torch/csrc/lanczos_dia.cu",
+         "lanczos_adjoints_tpu/ops/pallas_lanczos.py:93", "fused"),
+    )
+    entries = []
+    for kernel, name, symbol, source, replaces, route in meta:
+        main = rows[(kernel, big)]
+        profile = full["profile"][route]
+        entry = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": full["launches"][route][name], "launch_route": route, **main, "n": big,
+            # Device ms per launch inside the profiled VJP of the main path.
+            "ms_in_vjp": _per_launch_ms(profile["kernels"], symbol) if profile else None,
+            "launches_per_vjp": {f"m={g}": s["launches"][route][name] for g, s in slices.items()},
+        }
+        if kernel in ("K6", "K7"):
+            entry["by_n"] = [dict(rows[(kernel, g * g)], n=g * g) for g in GRIDS]
+            entry["also_replaces"] = ("lanczos_adjoints_tpu/ops/pallas_lanczos.py:280"
+                                      if kernel == "K6" else
+                                      "lanczos_adjoints_tpu/ops/pallas_lanczos.py:322")
+        if kernel == "K4":
+            entry["launches_transposed"] = full["launches"][route]["dia_matvec_transposed"]
+        entries.append(entry)
+    return entries
 
 
 def main() -> int:
@@ -352,7 +860,12 @@ def main() -> int:
     phase_parity()
     phase_oracle()
     counts = phase_slice(N_TRAIN, steps=3)
-    phase_timing(N_TRAIN, counts)
+    entries = phase_timing(N_TRAIN, counts)
+    phase_parity_dia()
+    phase_parity_lanczos()
+    slices = {m: phase_slice_sparse(m) for m in SLICE_GRIDS}
+    entries += phase_timing_sparse(slices)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(card)
     print(json.dumps({
         "ok": True,

@@ -3,18 +3,23 @@
 A second package beside the JAX one, for one NVIDIA H100. It keeps the
 JAX package's layout, names and conventions (a matvec is ``(v, *params)
 -> Av``; functions return ``(value, info)``; each closed-form adjoint is a
-``torch.autograd.Function``) and imports nothing of it. This slice holds
-the Gaussian-process marginal-likelihood training step:
+``torch.autograd.Function``) and imports nothing of it. It holds the
+Gaussian-process marginal-likelihood training step and the sparse
+Lanczos forward + adjoint VJP on a DIA operator:
 
-- ``ops``:     the fused Gram matvec (CUDA kernels K1 and K2 with plain
-               PyTorch versions) and the Gram matvec policies.
-- ``krylov``:  blocked Lanczos with its closed-form adjoints.
+- ``ops``:     the fused Gram matvec (CUDA kernels K1 and K2) and the Gram
+               matvec policies; CSR/DIA sparse operators with the DIA
+               matvec (K4, K5) and the fused DIA Lanczos forward and
+               adjoint (K6, K7); each kernel with its plain PyTorch version.
+- ``krylov``:  single-vector and blocked Lanczos with their closed-form
+               adjoints, and the dispatch of DIA operators to K6/K7.
 - ``solvers``: adaptive (P)CG with an implicit-differentiation backward pass.
 - ``precond``: blocked pivoted partial Cholesky and the Woodbury solve.
 - ``trace``:   Rademacher probes and the blocked SLQ log-determinant.
 - ``models``:  GP kernels, likelihood and log-pdf backends.
 - ``train``:   the GP training step (Adam with non-finite steps skipped).
-- ``utils``:   float32 pinning and the synthetic dataset.
+- ``utils``:   float32 pinning, the synthetic dataset, the in-repo
+               Laplacian and timing on the card.
 """
 
 __version__ = "0.1.0"

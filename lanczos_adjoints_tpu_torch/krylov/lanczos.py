@@ -1,8 +1,18 @@
-"""Blocked Lanczos tridiagonalisation with closed-form adjoints.
+"""Lanczos tridiagonalisation with closed-form adjoints.
 
-Counterpart of the blocked half of ``lanczos_adjoints_tpu/krylov/lanczos.py``
-(``tridiag_block``, its forward recursion, the two adjoints and the
-blocked SLQ integrand). ``m`` independent Lanczos recurrences share one
+Counterpart of ``lanczos_adjoints_tpu/krylov/lanczos.py``: the
+single-vector ``tridiag(reortho="none")`` with its closed-form adjoint
+and its dispatch of DIA operators to the fused Lanczos kernels, and the
+blocked half (``tridiag_block``, its forward recursion, the two adjoints
+and the blocked SLQ integrand).
+
+``tridiag``'s adjoint runs the reverse recursion with one operator
+application and one parameter vector-Jacobian product per step,
+``torch.autograd.grad(matvec(lam, *params), params, x)``; with the DIA
+kernel matvec that is one K4 and one K5 launch. ``reortho="full"`` and
+``integrand_spd`` wait for Arnoldi (slice 3).
+
+In the blocked half ``m`` independent Lanczos recurrences share one
 operator application ``matvec(V, *params)`` on an ``(n, m)`` block per
 step, so the fused Gram kernel evaluates each kernel cell once for all
 probes.
@@ -23,7 +33,7 @@ from typing import Callable
 
 import torch
 
-from lanczos_adjoints_tpu_torch.ops import fused_gram
+from lanczos_adjoints_tpu_torch.ops import fused_gram, native
 from lanczos_adjoints_tpu_torch.utils.precision import requires_float32
 
 
@@ -287,3 +297,225 @@ def integrand_spd_block(
         return scale**2 * torch.sum(first * matfun(eigvals) * first, dim=-1)
 
     return quadform
+
+
+# ---------------------------------------------------------------------------
+# Single-vector Lanczos (tridiag) and its dispatch to the fused DIA kernels
+# ---------------------------------------------------------------------------
+
+
+def tridiag(
+    matvec: Callable,
+    krylov_depth: int,
+    /,
+    *,
+    reortho: str,
+    custom_vjp: bool = True,
+    allow_fused: bool = True,
+    dispatch_log: list | None = None,
+) -> Callable:
+    """Construct a Lanczos tridiagonalisation ``A ~ X^T T X``.
+
+    Returns ``estimate(vec, *params)`` producing
+    ``((basis, (diags, offdiags)), (residual_vector, last_offdiag))`` with
+    ``basis (K, n)``, ``diags (K,)`` and ``offdiags (K-1,)``, for a
+    symmetric operator ``matvec(v, *params) -> A v``. ``params`` must be
+    the tensors to differentiate: the adjoint gives no gradient to
+    tensors the closure captures.
+
+    ``custom_vjp=True`` registers the closed-form adjoint;
+    ``custom_vjp=False`` backpropagates through the recurrence (the
+    oracle). An operator tagged ``.dia_data`` (``ops.sparse``) runs the
+    fused DIA kernels on the card, where the JAX package runs its Pallas
+    kernels on a TPU; the card has none of the TPU's size limits.
+    ``dispatch_log``, if a list, gets one event per call:
+    ``"tridiag:dia_fused"`` or ``"tridiag:generic"``.
+    ``reortho="full"`` needs Arnoldi, which is not ported yet (slice 3).
+    """
+    if reortho == "full":
+        msg = (
+            "tridiag(reortho='full') runs through Arnoldi (krylov/arnoldi.py, "
+            "kernel K9), which is not ported yet (slice 3 of ROADMAP.md)"
+        )
+        raise NotImplementedError(msg)
+    if reortho != "none":
+        msg = f"reortho={reortho!r} unsupported; choose one of 'full', 'none'."
+        raise ValueError(msg)
+    plain = _tridiag_plain(matvec, krylov_depth, custom_vjp=custom_vjp)
+    dia = getattr(matvec, "dia_data", None)
+    if allow_fused and custom_vjp and dia is not None:
+        return _tridiag_dispatch_dia(plain, dia, krylov_depth, dispatch_log=dispatch_log)
+    return _with_dispatch_event(plain, dispatch_log, "tridiag:generic")
+
+
+def _log_dispatch(dispatch_log, event):
+    """Record a dispatch decision (no-op when the log is None)."""
+    if dispatch_log is not None:
+        dispatch_log.append(event)
+
+
+def _with_dispatch_event(estimate, dispatch_log, event):
+    if dispatch_log is None:
+        return estimate
+
+    def logged(vec, *params):
+        _log_dispatch(dispatch_log, event)
+        return estimate(vec, *params)
+
+    return logged
+
+
+def _tridiag_dispatch_dia(plain, dia, krylov_depth, *, dispatch_log=None):
+    """Route DIA-tagged operators on the card to the fused kernels.
+
+    Any ``(vec (n,), values (D, n))`` call on the card goes to K6/K7:
+    they take any n, and the basis lives in device memory, so the JAX
+    package's TPU limits (``n % 128``, a VMEM budget) do not apply. A
+    dtype the kernels do not take raises there. Other calls, and calls
+    off the card, run the generic recursion.
+    """
+
+    def estimate(vec, *params):
+        n = dia.shape[0]
+        is_plain_call = (
+            len(params) == 1
+            and tuple(params[0].shape) == (len(dia.offsets), n)
+            and tuple(vec.shape) == (n,)
+            and 0 < krylov_depth <= n
+            and native.on_card(vec.device)
+        )
+        if is_plain_call:
+            from lanczos_adjoints_tpu_torch.ops import fused_lanczos
+
+            _log_dispatch(dispatch_log, "tridiag:dia_fused")
+            fused = fused_lanczos.tridiag_dia_fused(dia, krylov_depth, check_tiling=False)
+            return fused(vec, params[0])
+        _log_dispatch(dispatch_log, "tridiag:generic")
+        return plain(vec, *params)
+
+    return estimate
+
+
+def _tridiag_plain(matvec, krylov_depth, /, *, custom_vjp):
+    @requires_float32
+    def estimate(vec, *params):
+        if not 0 < krylov_depth <= len(vec):
+            msg = (
+                f"Parameter depth {krylov_depth} is outside the expected "
+                f"range (0, {len(vec)}]"
+            )
+            raise ValueError(msg)
+        if custom_vjp:
+            xs, alphas, betas, x_res, beta_res = _Tridiag.apply(
+                matvec, krylov_depth, vec, *params
+            )
+            return (xs, (alphas, betas)), (x_res, beta_res)
+        decomposition, remainder, _inv_norm = _forward(matvec, krylov_depth, vec, *params)
+        return decomposition, remainder
+
+    return estimate
+
+
+class _Tridiag(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, matvec, krylov_depth, vec, *params):
+        (xs, (alphas, betas)), (x_res, beta_res), _ = _forward(
+            matvec, krylov_depth, vec, *params
+        )
+        ctx.matvec = matvec
+        ctx.save_for_backward(
+            xs, alphas, betas, x_res, beta_res, torch.linalg.vector_norm(vec), *params
+        )
+        return xs, alphas, betas, x_res, beta_res
+
+    @staticmethod
+    def backward(ctx, dxs_head, dalphas, dbetas_head, dx_res, dbeta_res):
+        xs_head, alphas, betas_head, x_res, beta_res, vec_norm, *params = ctx.saved_tensors
+        # Stack the residual entries back onto the main sequences.
+        dvec, dparams = _adjoint(
+            ctx.matvec,
+            params,
+            ctx.needs_input_grad[3:],
+            vec_norm=vec_norm,
+            xs=torch.cat([xs_head, x_res[None]]),
+            alphas=alphas,
+            betas=torch.cat([betas_head, beta_res[None]]),
+            dxs=torch.cat([dxs_head, dx_res[None]]),
+            dalphas=dalphas,
+            dbetas=torch.cat([dbetas_head, dbeta_res[None]]),
+        )
+        return (None, None, dvec, *dparams)
+
+
+def _forward(matvec, krylov_depth, vec, *params):
+    """Three-term recurrence, one matvec per step, with the exhaustion guards."""
+    norm = torch.linalg.vector_norm(vec)
+    x0 = vec / norm
+    x_prev, x = torch.zeros_like(x0), x0
+    beta_prev = torch.zeros((), dtype=x0.dtype, device=x0.device)
+    xs, alphas, betas = [x0], [], []
+    for _ in range(krylov_depth):
+        ax = matvec(x, *params)
+        alpha = x @ ax
+        resid = ax - alpha * x - beta_prev * x_prev
+        # Safe norm: backprop through sqrt at an exactly-zero residual
+        # (after an exhausted Krylov space) would be 0 * inf = NaN.
+        sq = resid @ resid
+        alive = sq > 0.0
+        beta = torch.where(alive, torch.sqrt(torch.where(alive, sq, 1.0)), 0.0)
+        # An exactly-exhausted Krylov space (beta == 0) truncates with zero
+        # columns instead of 0 / 0.
+        x_next = torch.where(
+            alive, resid / torch.where(alive, beta, 1.0), torch.zeros_like(resid)
+        )
+        xs.append(x_next)
+        alphas.append(alpha)
+        betas.append(beta)
+        x_prev, x, beta_prev = x, x_next, beta
+    xs = torch.stack(xs)
+    betas = torch.stack(betas)
+    decomposition = (xs[:-1], (torch.stack(alphas), betas[:-1]))
+    remainder = (xs[-1], betas[-1])
+    return decomposition, remainder, 1.0 / norm
+
+
+def _adjoint(matvec, params, needs, *, vec_norm, xs, alphas, betas, dxs, dalphas, dbetas):
+    """Closed-form adjoint: the reverse (lambda, mu, nu) recursion.
+
+    The adjoint system of arXiv:2405.17277 for the three-term recurrence.
+    Each step applies the operator to lambda and takes the parameter
+    vector-Jacobian product ``x^T d/dp (A(p) lambda)`` in the same
+    autograd call; the increments are summed over the steps.
+    """
+    wanted = [i for i, need in enumerate(needs) if need]
+    dparams = [None] * len(params)
+    xi = -dxs[-1]
+    lam_next = torch.zeros_like(dxs[-1])
+    for s in reversed(range(alphas.shape[0])):
+        x, x_next = xs[s], xs[s + 1]
+        alpha, beta = alphas[s], betas[s]
+        # A zero beta decouples the trailing (truncated) block: its adjoint
+        # vector is zero, not xi / 0.
+        alive = beta > 0.0
+        xi = torch.where(alive, xi / torch.where(alive, beta, 1.0), torch.zeros_like(xi))
+        mu = dbetas[s] - lam_next @ x + x_next @ xi
+        nu = dalphas[s] + x @ xi
+        lam = -xi + mu * x_next + nu * x
+        if wanted:
+            with torch.enable_grad():
+                p = [q.detach().requires_grad_(i in wanted) for i, q in enumerate(params)]
+                a_lam = matvec(lam, *p)
+                found = torch.autograd.grad(a_lam, [p[i] for i in wanted], x, allow_unused=True)
+            a_lam = a_lam.detach()
+            for i, g in zip(wanted, found):
+                if g is not None:
+                    dparams[i] = g if dparams[i] is None else dparams[i] + g
+        else:
+            a_lam = matvec(lam, *params)
+        xi = -dxs[s] - a_lam + alpha * lam + beta * lam_next - beta * nu * x_next
+        lam_next = lam
+    for i in wanted:
+        if dparams[i] is None:
+            dparams[i] = torch.zeros_like(params[i])
+    dvec = ((xi @ xs[0]) * xs[0] - xi) / vec_norm
+    return dvec, dparams

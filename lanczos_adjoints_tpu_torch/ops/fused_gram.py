@@ -39,24 +39,8 @@ _PLAIN_CELLS = 1 << 26
 _VALUES_UNUSED = contextvars.ContextVar("fused_gram_values_unused", default=False)
 
 
-class Kernel:
-    """A CUDA kernel's C entry point and the count of its launches."""
-
-    def __init__(self, name: str, source: str, symbol: str):
-        self.name = name
-        self.source = source
-        self.symbol = symbol
-        self.launches = 0
-
-    def launch(self, *args) -> None:
-        fn = getattr(native.library(self.source), self.symbol)
-        native.check(fn(*args), self.name)
-        self.launches += 1
-
-
-GRAM_MATVEC = Kernel("gram_matvec", "gram_matvec", "lat_gram_matvec")
-GRAM_GRADS = Kernel("gram_grads", "gram_grads", "lat_gram_grads")
-KERNELS = (GRAM_MATVEC, GRAM_GRADS)
+GRAM_MATVEC = native.Kernel("gram_matvec", "gram_matvec", "lat_gram_matvec")
+GRAM_GRADS = native.Kernel("gram_grads", "gram_grads", "lat_gram_grads")
 _GRADS_BLOCK_ROWS = 64  # rows per K2 block: kBR in csrc/gram_grads.cu
 
 

@@ -6,6 +6,10 @@ them started together) into ``_build/lib<name>-<digest>.so`` for
 and the flags, so an edited source is never served from a stale library.
 The build happens at the first launch of a kernel (or on
 ``build_all()``); nothing is compiled when a module is imported.
+
+``Kernel`` binds one C entry point and counts its launches; every
+kernel the package defines is registered in ``KERNELS``, the one place
+a run reads its launch counts from.
 """
 
 import ctypes
@@ -15,10 +19,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
-SOURCES = ("gram_matvec", "gram_grads")
+SOURCES = ("gram_matvec", "gram_grads", "dia", "lanczos_dia")
 FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -30,12 +36,24 @@ FLAGS = (
     "-v",
 )
 
+MAX_DIAGS = 64  # kMaxDiags in csrc/dia_common.cuh
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # Every C entry point returns a cudaError_t as int (0 = success).
 _SIGNATURES = {
     "gram_matvec": {"lat_gram_matvec": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P)},
     "gram_grads": {"lat_gram_grads": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)},
+    "dia": {
+        "lat_dia_matvec": (_P, _P, _P, _I, _I, _P, _P),
+        "lat_dia_dvals": (_P, _P, _P, _I, _I, _P, _P),
+    },
+    "lanczos_dia": {
+        "lat_lanczos_dia_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P),
+        "lat_lanczos_dia_adjoint": (
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P,
+        ),
+    },
 }
 
 _loaded = {}
@@ -122,3 +140,58 @@ def check(status: int, what: str) -> None:
     if status != 0:
         msg = f"{what} failed with CUDA error {status}"
         raise RuntimeError(msg)
+
+
+# Every kernel of the package, by name, in the order its module was imported.
+KERNELS = {}
+
+
+class Kernel:
+    """A CUDA kernel's C entry point and the count of its launches.
+
+    Constructing one registers it in ``KERNELS``. ``launch`` is the only
+    place that counts, and it counts only a launch that the C entry point
+    reported as accepted.
+    """
+
+    def __init__(self, name: str, source: str, symbol: str):
+        if name in KERNELS:
+            msg = f"kernel {name!r} is registered twice"
+            raise ValueError(msg)
+        self.name = name
+        self.source = source
+        self.symbol = symbol
+        self.launches = 0
+        KERNELS[name] = self
+
+    def launch(self, *args) -> None:
+        fn = getattr(library(self.source), self.symbol)
+        check(fn(*args), self.name)
+        self.launches += 1
+
+
+def reset_launches() -> None:
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: kernel.launches for name, kernel in KERNELS.items()}
+
+
+def on_card(device) -> bool:
+    """Whether ``device`` is a CUDA device: the port's "backend is tpu".
+
+    The dispatch predicates of ``ops.sparse.sparse_operator`` and
+    ``krylov.lanczos.tridiag`` read it; the kernel wrappers do not (they
+    take the plain version for CPU tensors whatever this returns).
+    """
+    return torch.device(device).type == "cuda"
+
+
+def offsets_arg(offsets, n: int):
+    """DIA offsets as a C int array, each taken modulo n into [0, n)."""
+    if not 0 < len(offsets) <= MAX_DIAGS:
+        msg = f"{len(offsets)} diagonals; the DIA kernels take 1 to {MAX_DIAGS}"
+        raise ValueError(msg)
+    return (ctypes.c_int * len(offsets))(*(int(d) % n for d in offsets))
