@@ -38,12 +38,31 @@ Phases, in order:
      times;
   9. kernel times at the slices' shapes beside their bounds, their
      plain versions' times and (K4) one library call, each held to its
-     plain version again, as one JSON line. K4 and K5 cycle through
-     operand sets larger than the L2 together, as the main path does.
+     plain version again. K4 and K5 cycle through operand sets larger
+     than the L2 together, as the main path does;
+ 10. Arnoldi parity: K9 (``csrc/arnoldi_dia.cu``) against its plain
+     version (Q, H, residual, 1/|v0|) and the autograd Function (K9
+     forward, adjoint over the transposed K4 and K5) against the plain
+     forward and adjoint, at (n, K) from (4,736, 12) to (1,000,000, 90),
+     with and without re-orthogonalisation, and on an exhausted Krylov
+     space (exactly);
+ 11. the Arnoldi slice: ``sparse_operator`` -> ``hessenberg`` (K = 90)
+     and ``tridiag(reortho="full")`` (K = 10, 90, 250) at the 128 x 128
+     Laplacian and ``hessenberg`` at 1000 x 1000, one VJP with the
+     all-ones cotangent per route: launches per VJP, dispatch log, fused
+     vs generic, adjoint vs backprop, wall times, a profiled run;
+ 12. per-probe SLQ: ``krylov_logdet_slq(90, 10 probes, blocked=False)``
+     and its gradient on the 128 x 128 Laplacian against the
+     closed-form log-determinant;
+ 13. the wave-PDE training step at 128 x 128 on the bundled pairs: the
+     adjoint gradient against backprop, then three Adam steps;
+ 14. K9's time per launch beside its bound and plain version. The
+     kernels of every slice, with their numbers, form one JSON line.
 The last two lines are the card (``name, power.limit``) and
 ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import itertools
 import json
 import subprocess
@@ -464,9 +483,11 @@ def _cotangent(rng, depth, n):
             _tensor(rng, n), _tensor(rng, ()))
 
 
-def _flat_outputs(out):
-    (xs, (alphas, betas)), (x_res, beta_res) = out
-    return xs, alphas, betas, x_res, beta_res
+def _leaves(out):
+    """The tensors of a nested tuple of outputs, in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _leaves(o)]
 
 
 def _lanczos_cases():
@@ -542,7 +563,7 @@ def phase_parity_lanczos():
         # bit. Both stream values call the same code; one pass suffices.
         estimate = fl.tridiag_dia_fused(dia, depth, stream=True, check_tiling=False)
         inputs = [v0.clone().requires_grad_(), vals.clone().requires_grad_()]
-        outputs = _flat_outputs(estimate(*inputs))
+        outputs = _leaves(estimate(*inputs))
         grads = torch.autograd.grad(outputs, inputs, cot)
         xs_k, alphas_k, betas_k = kernel
         direct = fl.lanczos_adjoint_rows(offsets, vals, xs_k, alphas_k, betas_k, *args[3:])
@@ -562,7 +583,7 @@ def phase_parity_lanczos():
 def _one_vjp(estimate, v0, vals):
     """One forward + VJP with the all-ones cotangent, as bench.py does."""
     inputs = [v0.clone().requires_grad_(), vals.clone().requires_grad_()]
-    outputs = _flat_outputs(estimate(*inputs))
+    outputs = _leaves(estimate(*inputs))
     return torch.autograd.grad(outputs, inputs, [torch.ones_like(o) for o in outputs])
 
 
@@ -697,65 +718,69 @@ def _rotating(fns):
     return lambda: next(it)()
 
 
+def _record(rows, failures, key, symbol, runs, plains, nbytes, ops, reps, plain_reps, *,
+            tols=None, exact=None, library=None):
+    """Time ``runs`` (and ``plains``, ``library``) in rotation over their
+    operand sets into ``rows[key]``; hold set 0's kernel result to its
+    plain one, output by output, within ``tols`` or, given the float64
+    plain result ``exact``, within the spread-derived limit (a miss
+    appends ``key`` to ``failures``)."""
+    from lanczos_adjoints_tpu_torch.utils.timing import device_profile, events_ms
+
+    got = runs[0]()  # warm-up, and the value held against the plain one
+    want = plains[0]()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if exact is not None:
+        tols = [_spread_tol(_rel_err(w, e)) for w, e in zip(want, exact())]
+    torch.cuda.synchronize()
+    run, plain = _rotating(runs), _rotating(plains)
+    ms_events = events_ms(run, reps)
+    plain_ms = events_ms(plain, plain_reps)
+    # The kernel's own device time per launch, without the host's
+    # share of back-to-back launches, where the profiler sees it.
+    _wall, kernels = device_profile(lambda: [run() for _ in range(reps)])
+    ms_device = _per_launch_ms(kernels, symbol)
+    ms = ms_device if ms_device is not None else ms_events
+    library_ms = library_events = None
+    if library is not None:
+        lib = _rotating(library)
+        lib()
+        library_events = events_ms(lib, reps)
+        # Device time of the whole call (all its kernels), as for K4.
+        _wall, lib_kernels = device_profile(lambda: [lib() for _ in range(reps)])
+        busy = sum(t for _c, t in lib_kernels.values())
+        library_ms = busy / reps if lib_kernels else library_events
+    abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    rel = [_rel_err(a, b) for a, b in zip(got, want)]
+    ok = all(r <= t for r, t in zip(rel, tols))
+    if not ok:
+        failures.append(key)
+    bound_ms, by = _bound(nbytes, ops)
+    rows[key] = {"ms": ms, "ms_events": ms_events, "ms_device": ms_device,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                 "library_ms": library_ms, "library_ms_events": library_events,
+                 "max_abs_err": abs_err, "rel_errs": rel, "rel_limits": list(tols),
+                 "operand_sets": len(runs)}
+    lib = (f", library {library_ms:.4f} ms on the device ({library_events:.4f} ms by events)"
+           if library is not None else "")
+    dev = f"{ms_device:.4f} ms" if ms_device is not None else "not measured"
+    print(f"  {key}: kernel {dev} on the device ({ms_events:.4f} ms by events back to back, "
+          f"{len(runs)} operand sets), plain {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms "
+          f"({by}); max abs err {abs_err:.3e}, rel errs "
+          + ", ".join(f"{r:.2e} (limit {t:.2e})" for r, t in zip(rel, tols))
+          + (" ok" if ok else " FAIL"), flush=True)
+
+
 def phase_timing_sparse(slices):
     """Per-launch times of K4-K7 at the sparse slice's shapes; their kernels-line entries."""
     from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
     from lanczos_adjoints_tpu_torch.ops import fused_lanczos as fl
-    from lanczos_adjoints_tpu_torch.utils.timing import device_profile, events_ms
 
     print("[timing-sparse] DIA kernels at the slice's shapes (profiler and CUDA events)", flush=True)
     rng = np.random.default_rng(6)
     rows, failures = {}, []
-
-    def record(key, symbol, runs, plains, nbytes, ops, reps, plain_reps, *, tols=None,
-               exact=None, library=None):
-        """Time ``runs`` (and ``plains``, ``library``) in rotation over their
-        operand sets; hold set 0's kernel result to its plain one, output
-        by output, within ``tols`` or, given the float64 plain result
-        ``exact``, within the spread-derived limit."""
-        got = runs[0]()  # warm-up, and the value held against the plain one
-        want = plains[0]()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        if exact is not None:
-            tols = [_spread_tol(_rel_err(w, e)) for w, e in zip(want, exact())]
-        torch.cuda.synchronize()
-        run, plain = _rotating(runs), _rotating(plains)
-        ms_events = events_ms(run, reps)
-        plain_ms = events_ms(plain, plain_reps)
-        # The kernel's own device time per launch, without the host's
-        # share of back-to-back launches, where the profiler sees it.
-        _wall, kernels = device_profile(lambda: [run() for _ in range(reps)])
-        ms_device = _per_launch_ms(kernels, symbol)
-        ms = ms_device if ms_device is not None else ms_events
-        library_ms = library_events = None
-        if library is not None:
-            lib = _rotating(library)
-            lib()
-            library_events = events_ms(lib, reps)
-            # Device time of the whole call (all its kernels), as for K4.
-            _wall, lib_kernels = device_profile(lambda: [lib() for _ in range(reps)])
-            busy = sum(t for _c, t in lib_kernels.values())
-            library_ms = busy / reps if lib_kernels else library_events
-        abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        rel = [_rel_err(a, b) for a, b in zip(got, want)]
-        ok = all(r <= t for r, t in zip(rel, tols))
-        if not ok:
-            failures.append(key)
-        bound_ms, by = _bound(nbytes, ops)
-        rows[key] = {"ms": ms, "ms_events": ms_events, "ms_device": ms_device,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-                     "library_ms": library_ms, "library_ms_events": library_events,
-                     "max_abs_err": abs_err, "rel_errs": rel, "rel_limits": list(tols),
-                     "operand_sets": len(runs)}
-        lib = (f", library {library_ms:.4f} ms on the device ({library_events:.4f} ms by events)"
-               if library is not None else "")
-        dev = f"{ms_device:.4f} ms" if ms_device is not None else "not measured"
-        print(f"  {key}: kernel {dev} on the device ({ms_events:.4f} ms by events back to back, "
-              f"{len(runs)} operand sets), plain {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms "
-              f"({by}); max abs err {abs_err:.3e}, rel errs "
-              + ", ".join(f"{r:.2e} (limit {t:.2e})" for r, t in zip(rel, tols))
-              + (" ok" if ok else " FAIL"), flush=True)
+    record = functools.partial(_record, rows, failures)
 
     m = GRIDS[-1]
     mat, dia, vals = _laplacian(m)
@@ -847,6 +872,415 @@ def phase_timing_sparse(slices):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The Arnoldi slice: the fused Arnoldi forward (K9), per-probe SLQ, the PDE step
+# ---------------------------------------------------------------------------
+
+# (n, K, reortho) of [parity-arnoldi]: the tridiagonal operator at 37 x 128
+# rows and at 4,739 (a multiple of neither 128 nor 1024), the 128 x 128
+# Laplacian at the benchmark's K = 90 and its deepest K = 250, and the
+# 1000 x 1000 Laplacian (n = 1,000,000).
+ARNOLDI_PARITY = ((4_736, 12, "none"), (4_736, 12, "full"), (4_739, 12, "full"),
+                  (16_384, 90, "none"), (16_384, 90, "full"), (16_384, 250, "full"),
+                  (1_000_000, 90, "full"))
+# (grid m, entry point, K, reortho) of [slice-arnoldi]: the Arnoldi VJP of the
+# reference's figure (K = 90, no re-orthogonalisation) and with it, the
+# re-orthogonalised Lanczos over the benchmark's depths, and n = 1,000,000.
+ARNOLDI_SLICE = ((128, "hessenberg", 90, "none"), (128, "hessenberg", 90, "full"),
+                 (128, "tridiag", 10, "full"), (128, "tridiag", 90, "full"),
+                 (128, "tridiag", 250, "full"), (1000, "hessenberg", 90, "full"))
+# Which [slice-arnoldi] run is the main path of the kernels line.
+ARNOLDI_MAIN = (1000, "hessenberg", 90, "full")
+ARNOLDI_KERNELS = ("arnoldi_dia_forward", "dia_matvec", "dia_matvec_transposed", "dia_dvals")
+SLQ_DEPTH, SLQ_PROBES = 90, 10
+PDE_GRID, PDE_STEPS = 128, 3
+
+
+def _tridiagonal(n):
+    """The tridiagonal 2.5 / -1 operator of the JAX fused-kernel tests."""
+    from lanczos_adjoints_tpu_torch.ops import sparse
+
+    idx = np.arange(n)
+    mat = sparse.csr_from_coo(
+        np.concatenate([idx, idx[:-1], idx[1:]]), np.concatenate([idx, idx[1:], idx[:-1]]),
+        np.concatenate([2.5 * np.ones(n), -np.ones(n - 1), -np.ones(n - 1)]), shape=(n, n),
+    )
+    dia = sparse.dia_pack(mat)
+    return dia, sparse.dia_values(dia, mat.data, device=DEVICE)
+
+
+def _arnoldi_cases():
+    """(name, dia, vals, v0, depth, reortho, exact) for [parity-arnoldi]."""
+    rng = np.random.default_rng(7)
+    for n, depth, reortho in ARNOLDI_PARITY:
+        if n in (4_736, 4_739):
+            dia, vals = _tridiagonal(n)
+            kind = "tridiagonal"
+        else:
+            _mat, dia, vals = _laplacian(int(round(n ** 0.5)))
+            kind = "laplacian"
+        yield f"{kind} n={n} K={depth} {reortho}", dia, vals, _tensor(rng, n), depth, reortho, False
+    # An exhausted Krylov space: A = 1.5 I and a one-hot v0 give an exactly
+    # zero residual at step 0; every later column, H entry and the
+    # residual are the guarded zeros, on both sides.
+    n = 16_384
+    v0 = torch.zeros(n, device=DEVICE)
+    v0[7] = 1.0
+    for reortho in ("none", "full"):
+        yield (f"exhausted (1.5 I, one-hot v0) n={n} K=12 {reortho}", _dia((0,), n),
+               torch.full((1, n), 1.5, device=DEVICE), v0, 12, reortho, True)
+
+
+def _plain_dia_vjp(offsets, vals):
+    """The DIA adjoint step's two products by the kernels' plain versions."""
+    from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
+
+    neg, vals_t = fd.transposed(offsets, vals)
+    return lambda q, lam: (fd.dia_matvec_plain(neg, lam, vals_t), [fd.dia_dvals_plain(offsets, q, lam)])
+
+
+def _plain_arnoldi_vjp(offsets, vals, v0, depth, reortho, cot):
+    """Plain K9 and the closed-form adjoint over the plain DIA products: ``(dv, dvals)``."""
+    from lanczos_adjoints_tpu_torch.krylov import arnoldi
+    from lanczos_adjoints_tpu_torch.ops import fused_arnoldi as fa
+
+    q, h, res, inv_norm = fa.hessenberg_dia_forward_plain(offsets, vals, v0, depth, reortho)
+    dQ, dH, dres, dinv = (c.to(vals.dtype) for c in cot)
+    dv, (dvals,) = arnoldi._adjoint(
+        _plain_dia_vjp(offsets, vals), Q=q.T, H=h, res=res, inv_norm=inv_norm, dQ=dQ, dH=dH,
+        dres=dres, dinv_norm=dinv, reortho=reortho)
+    return dv, dvals
+
+
+def phase_parity_arnoldi():
+    """K9 against its plain version (Q, H, res, 1/|v0|), and the Function's
+    gradients (K9 forward, adjoint over the transposed K4 and K5) against the
+    plain forward and adjoint, with tolerances from the f32-vs-f64 spread."""
+    from lanczos_adjoints_tpu_torch.ops import fused_arnoldi as fa
+
+    print("[parity-arnoldi] fused Arnoldi kernel vs plain version on the card", flush=True)
+    failures = []
+    rng = np.random.default_rng(8)
+    for name, dia, vals, v0, depth, reortho, exhausted in _arnoldi_cases():
+        offsets, n = dia.offsets, dia.shape[0]
+        kernel = fa.hessenberg_dia_forward_rows(offsets, vals, v0, depth, reortho)
+        plain = fa.hessenberg_dia_forward_plain(offsets, vals, v0, depth, reortho)
+        torch.cuda.synchronize()
+        if exhausted:
+            same = all(torch.equal(a, b) for a, b in zip(kernel, plain))
+            zeros = float(kernel[1].abs().sum()) == 1.5 and float(kernel[0][1:].abs().max()) == 0.0
+            print(f"  K9 {name}: kernel == plain exactly {same}; H = 1.5 e1 e1^T and basis rows "
+                  f"1.. zero {zeros}", flush=True)
+            if not (same and zeros):
+                failures.append(f"K9 {name}")
+        else:
+            exact = fa.hessenberg_dia_forward_plain(offsets, vals.double(), v0.double(), depth, reortho)
+            for label, i in (("Q", 0), ("H", 1), ("res", 2), ("1/|v0|", 3)):
+                _report_spread(f"K9 {label} {name} kernel vs plain", _rel_err(kernel[i], plain[i]),
+                               _rel_err(plain[i], exact[i]), failures)
+            del exact
+        del kernel
+
+        cot = (_tensor(rng, (n, depth)), _tensor(rng, (depth, depth)), _tensor(rng, n), _tensor(rng, ()))
+        estimate = fa.hessenberg_dia_fused(dia, depth, reortho=reortho, check_tiling=False)
+        inputs = [v0.clone().requires_grad_(), vals.clone().requires_grad_()]
+        grads = torch.autograd.grad(estimate(*inputs), inputs, cot)
+        want = _plain_arnoldi_vjp(offsets, vals, v0, depth, reortho, cot)
+        exact = _plain_arnoldi_vjp(offsets, vals.double(), v0.double(), depth, reortho, cot)
+        torch.cuda.synchronize()
+        for label, i in (("dv", 0), ("dvals", 1)):
+            _report_spread(f"K9 Function {label} {name} vs plain", _rel_err(grads[i], want[i]),
+                           _rel_err(want[i], exact[i]), failures)
+        del plain, cot, grads, want, exact
+    if failures:
+        msg = f"{len(failures)} Arnoldi parity checks failed: {failures[:5]}"
+        raise RuntimeError(msg)
+
+
+def _arnoldi_entry(kind, matvec, depth, reortho, **kwargs):
+    from lanczos_adjoints_tpu_torch.krylov import arnoldi, lanczos
+
+    if kind == "hessenberg":
+        return arnoldi.hessenberg(matvec, depth, reortho=reortho, **kwargs)
+    return lanczos.tridiag(matvec, depth, reortho=reortho, **kwargs)
+
+
+def _launches(names):
+    from lanczos_adjoints_tpu_torch.ops import native
+
+    counts = native.launch_counts()
+    return {k: counts[k] for k in names}
+
+
+def phase_slice_arnoldi(m, kind, depth, reortho):
+    """The Arnoldi VJP through the port's entry points at an m x m grid:
+    ``sparse_operator`` -> ``hessenberg`` or ``tridiag(reortho="full")``."""
+    from lanczos_adjoints_tpu_torch.ops import native, sparse
+    from lanczos_adjoints_tpu_torch.utils import test_util
+    from lanczos_adjoints_tpu_torch.utils.timing import events_ms
+
+    mat = test_util.laplacian_2d(m)
+    matvec, vals = sparse.sparse_operator(mat, device=DEVICE)
+    dia = sparse.dia_pack(mat)
+    n = mat.shape[0]
+    v0 = torch.ones(n, device=DEVICE)
+    tag = f"{kind} K={depth} reortho={reortho} m={m}"
+    print(f"[slice-arnoldi] {m}x{m} Laplacian (n={n}): {kind}, K={depth}, reortho={reortho}, "
+          f"one VJP with the all-ones cotangent", flush=True)
+    log_fused, log_generic = [], []
+    routes = {
+        "fused": _arnoldi_entry(kind, matvec, depth, reortho, dispatch_log=log_fused),
+        "generic": _arnoldi_entry(kind, matvec, depth, reortho, allow_fused=False,
+                                  dispatch_log=log_generic),
+    }
+    expected = {
+        "fused": {"arnoldi_dia_forward": 1, "dia_matvec_transposed": depth, "dia_dvals": depth},
+        # The generic adjoint differentiates the K4 Function at each step:
+        # its forward K4, then the transposed K4 and K5.
+        "generic": {"dia_matvec": 2 * depth, "dia_matvec_transposed": depth, "dia_dvals": depth},
+    }
+    failures, grads, launches = [], {}, {}
+    for route, estimate in routes.items():
+        native.reset_launches()
+        grads[route] = _one_vjp(estimate, v0, vals)
+        torch.cuda.synchronize()
+        launches[route] = _launches(ARNOLDI_KERNELS)
+        want = {k: expected[route].get(k, 0) for k in ARNOLDI_KERNELS}
+        finite = all(bool(torch.isfinite(g).all()) for g in grads[route])
+        ok = launches[route] == want and finite and float(grads[route][0].abs().max()) > 0.0
+        print(f"  {route}: launches per VJP {launches[route]} (predicted {want}); grads finite "
+              f"{finite} max|dv| {float(grads[route][0].abs().max()):.6e} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(route)
+    prefix = ["tridiag:arnoldi_full"] if kind == "tridiag" else []
+    print(f"  dispatch log: fused {log_fused}, generic {log_generic}")
+    if log_fused != prefix + ["hessenberg:dia_fused"] or log_generic != prefix + ["hessenberg:generic"]:
+        failures.append("dispatch log")
+
+    # The spread: the generic route over the plain roll matvec, float32 vs float64.
+    roll = sparse.dia_matvec_fn(dia)
+    plain = [_one_vjp(_arnoldi_entry(kind, roll, depth, reortho, allow_fused=False),
+                      v0.to(dtype), vals.to(dtype)) for dtype in (torch.float32, torch.float64)]
+    for label, i in (("dv", 0), ("dvals", 1)):
+        _report_spread(f"fused vs generic {label} {tag}", _rel_err(grads["fused"][i], grads["generic"][i]),
+                       _rel_err(plain[0][i], plain[1][i]), failures)
+    if m == 128 and depth == 90:
+        # The closed-form adjoint against backprop through the loop: in
+        # float64 to rounding, in float32 within the spreads of both.
+        backprop = [_one_vjp(_arnoldi_entry(kind, op, depth, reortho, custom_vjp=False), v0.to(dtype),
+                             vals.to(dtype)) for op, dtype in ((matvec, torch.float32), (roll, torch.float64))]
+        for label, i in (("dv", 0), ("dvals", 1)):
+            spread = max(_rel_err(plain[0][i], plain[1][i]), _rel_err(backprop[0][i], backprop[1][i]))
+            _report_spread(f"adjoint vs backprop {label} {tag}", _rel_err(grads["fused"][i], backprop[0][i]),
+                           spread, failures)
+            print(f"  adjoint vs backprop {label} in float64: max rel err "
+                  f"{_rel_err(plain[1][i], backprop[1][i]):.3e}")
+    if failures:
+        raise RuntimeError(f"Arnoldi slice {tag} failed: {failures}")
+
+    times, profiles = {}, {}
+    for route in ("fused", "generic"):
+        times[route] = events_ms(lambda r=route: _one_vjp(routes[r], v0, vals), 5)
+        print(f"  VJP wall time {route}: {times[route]:.3f} ms (CUDA events, mean of 5 after warm-up)",
+              flush=True)
+    for route in ("fused", "generic"):
+        profiles[route] = _print_profile(route, lambda r=route: _one_vjp(routes[r], v0, vals))
+    return {"launches": launches, "vjp_ms": times, "profile": profiles, "n": n}
+
+
+def _laplacian_logdet(m):
+    """The closed-form log-determinant of the m x m Dirichlet Laplacian."""
+    j = np.arange(1, m + 1)
+    theta = np.pi * j / (m + 1)
+    return float(np.sum(np.log(4.0 - 2.0 * np.cos(theta)[:, None] - 2.0 * np.cos(theta)[None, :])))
+
+
+def phase_slice_slq(m=128):
+    """Per-probe SLQ log-determinant, value and gradient in the DIA values:
+    ``krylov_logdet_slq(blocked=False)`` over ``sparse_operator``."""
+    from lanczos_adjoints_tpu_torch.krylov import lanczos
+    from lanczos_adjoints_tpu_torch.ops import native, sparse
+    from lanczos_adjoints_tpu_torch.trace import hutchinson, slq
+    from lanczos_adjoints_tpu_torch.utils import test_util
+    from lanczos_adjoints_tpu_torch.utils.timing import events_ms
+
+    mat = test_util.laplacian_2d(m)
+    matvec, vals = sparse.sparse_operator(mat, device=DEVICE)
+    n = mat.shape[0]
+    print(f"[slice-slq] {m}x{m} Laplacian (n={n}): krylov_logdet_slq({SLQ_DEPTH}, "
+          f"sampler_rademacher(num={SLQ_PROBES}), blocked=False, matfun=log), value and "
+          f"gradient in the DIA values", flush=True)
+    drawn = []
+    rademacher = hutchinson.sampler_rademacher(torch.ones(n, device=DEVICE), num=SLQ_PROBES)
+
+    def sample(key):
+        drawn.append(rademacher(key))
+        return drawn[-1]
+
+    def value_and_grad(op, sampler, p0):
+        logdet = slq.krylov_logdet_slq(SLQ_DEPTH, sample=sampler, num_batches=1, checkpoint=False)
+        p = p0.clone().requires_grad_()
+        value, _info = logdet(op, torch.Generator(device=DEVICE).manual_seed(3), p)
+        (grad,) = torch.autograd.grad(value, [p])
+        return value.detach(), grad
+
+    native.reset_launches()
+    value, grad = value_and_grad(matvec, sample, vals)
+    torch.cuda.synchronize()
+    launches = _launches(ARNOLDI_KERNELS)
+    want = {"arnoldi_dia_forward": SLQ_PROBES, "dia_matvec": 0,
+            "dia_matvec_transposed": SLQ_PROBES * SLQ_DEPTH, "dia_dvals": SLQ_PROBES * SLQ_DEPTH}
+    failures = []
+    finite = bool(torch.isfinite(grad).all()) and bool(torch.isfinite(value))
+    print(f"  launches {launches} (predicted {want}); value and gradient finite {finite}", flush=True)
+    if launches != want or not finite:
+        failures.append("launches")
+
+    probes = drawn[0]
+    with torch.no_grad():
+        per_probe = torch.stack([lanczos.integrand_spd(torch.log, SLQ_DEPTH, matvec)(v, vals)
+                                 for v in probes]).double()
+    se = float(per_probe.std()) / SLQ_PROBES ** 0.5
+    exact = _laplacian_logdet(m)
+    dev = abs(float(value) - exact)
+    print(f"  logdet: SLQ {float(value):.4f}, closed form {exact:.4f}, |diff| {dev:.4f}, standard "
+          f"error of the {SLQ_PROBES} per-probe values {se:.4f}, |diff| / se {dev / se:.3f} (limit 5); "
+          f"mean of the per-probe values {float(per_probe.mean()):.4f}", flush=True)
+    if not dev <= 5 * se:
+        failures.append("closed form")
+
+    # The generic route (the K4 matvec without its DIA tag) and the plain
+    # spread (the roll matvec, float32 vs float64), on the same probes.
+    fixed = lambda _key: probes  # noqa: E731
+    roll = sparse.dia_matvec_fn(sparse.dia_pack(mat))
+    generic = value_and_grad(lambda v, p: matvec(v, p), fixed, vals)
+    plain = [value_and_grad(lambda v, p: roll(v, p), lambda _k, d=dtype: probes.to(d), vals.to(dtype))
+             for dtype in (torch.float32, torch.float64)]
+    _report_spread("fused vs generic value", _rel_err(value, generic[0]),
+                   _rel_err(plain[0][0], plain[1][0]), failures)
+    _report_spread("fused vs generic gradient", _rel_err(grad, generic[1]),
+                   _rel_err(plain[0][1], plain[1][1]), failures)
+    if failures:
+        raise RuntimeError(f"SLQ slice failed: {failures}")
+
+    ms = events_ms(lambda: value_and_grad(matvec, fixed, vals), 5)
+    generic_ms = events_ms(lambda: value_and_grad(lambda v, p: matvec(v, p), fixed, vals), 2)
+    print(f"  value-and-gradient wall time: fused {ms:.3f} ms (mean of 5), generic {generic_ms:.3f} ms "
+          f"(mean of 2; CUDA events after warm-up)", flush=True)
+    profile = _print_profile("fused", lambda: value_and_grad(matvec, fixed, vals))
+    return {"launches": launches, "ms": ms, "generic_ms": generic_ms, "profile": profile,
+            "value": float(value), "exact": exact, "se": se}
+
+
+def _flat_grads(model):
+    return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+
+
+def phase_slice_pde(resolution=PDE_GRID, steps=PDE_STEPS):
+    """The wave-PDE training step (Arnoldi K = 10 over the convolution) on the
+    bundled pairs: the adjoint gradient against backprop, then Adam steps."""
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.train import pde as train_pde
+
+    stack = train_pde.assemble(resolution, device=DEVICE)
+    print(f"[slice-pde] wave PDE {resolution}x{resolution}, {stack.inputs.shape[0]} bundled pairs, "
+          f"expm_arnoldi(10) (generic Arnoldi over the convolution), MLP 500-500-1, Adam lr 1e-2, "
+          f"{steps} steps", flush=True)
+    # Step 0's gradient: the closed-form Arnoldi adjoint against backprop
+    # through the loop, same weights.
+    train_pde.loss_fn(stack)[0].backward()
+    g_adjoint = _flat_grads(stack.model).clone()
+    oracle = train_pde.assemble(resolution, custom_vjp=False, device=DEVICE)
+    oracle.model.load_state_dict(stack.model.state_dict())
+    train_pde.loss_fn(oracle)[0].backward()
+    g_backprop = _flat_grads(oracle.model)
+    torch.cuda.synchronize()
+    rel = float(torch.linalg.vector_norm(g_adjoint - g_backprop) / torch.linalg.vector_norm(g_backprop))
+    close = bool(torch.allclose(g_adjoint, g_backprop, atol=1e-2, rtol=1e-2))
+    print(f"  step 0 gradient, adjoint vs backprop: relative norm error {rel:.3e} (limit 1e-02), "
+          f"allclose(atol=rtol=1e-2) {close}; |grad| {float(torch.linalg.vector_norm(g_backprop)):.4e}",
+          flush=True)
+    del oracle
+    if not (rel <= 1e-2 and close):
+        raise RuntimeError("PDE adjoint gradient disagrees with backprop")
+
+    native.reset_launches()
+    losses, times = [], []
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value, info = train_pde.train_step(stack)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(value.item())
+        print(f"  step {step}: loss {losses[-1]:.6e} wall {times[-1]:.3f} s "
+              f"(matvecs per solve {info['num_matvecs']})", flush=True)
+        if not np.isfinite(losses[-1]):
+            raise RuntimeError(f"PDE step {step} gave a non-finite loss")
+    counts = native.launch_counts()
+    print(f"  kernel launches over the steps (none expected: the convolution carries no DIA tag): "
+          f"{ {k: c for k, c in counts.items() if c} }")
+    return {"losses": losses, "step_s": times, "grad_rel_err": rel}
+
+
+def _arnoldi_ops(n, depth, passes, num_diags=5):
+    """fp32 operations of K9: the Gram-Schmidt dots and updates and the matvec."""
+    return 4 * passes * n * depth * (depth + 1) // 2 + 2 * num_diags * n * depth
+
+
+def phase_timing_arnoldi(slice_runs):
+    """K9's device time per launch at [parity-arnoldi]'s shapes from 16,384 up,
+    beside its bound and its plain version's time; its kernels-line entry."""
+    from lanczos_adjoints_tpu_torch.ops import fused_arnoldi as fa
+
+    print("[timing-arnoldi] K9 at the slice's shapes (profiler and CUDA events); library: none",
+          flush=True)
+    rows, failures = {}, []
+    rng = np.random.default_rng(9)
+    for n, depth, reortho in ARNOLDI_PARITY:
+        if n < 16_384:
+            continue
+        _mat, dia, vals = _laplacian(int(round(n ** 0.5)))
+        offsets, num_diags = dia.offsets, len(dia.offsets)
+        v0 = _tensor(rng, n)
+        passes = 2 if reortho == "full" else 1
+        nbytes = 4 * ((num_diags + 2 + depth) * n + depth * depth + 1)
+        ops = _arnoldi_ops(n, depth, passes, num_diags)
+        # Re-reading the basis rows in every pass (dots and update) and the
+        # matvec's operands every step, as the kernel does.
+        modelled = 4 * (2 * passes * n * depth * (depth + 1) // 2 + depth * (num_diags + 6) * n)
+        _record(rows, failures, (n, depth, reortho), "arnoldi_forward_kernel",
+                [lambda: fa.hessenberg_dia_forward_rows(offsets, vals, v0, depth, reortho)],
+                [lambda: fa.hessenberg_dia_forward_plain(offsets, vals, v0, depth, reortho)],
+                nbytes, ops, 5 if n > 100_000 else 20, 1,
+                exact=lambda: fa.hessenberg_dia_forward_plain(offsets, vals.double(), v0.double(),
+                                                              depth, reortho))
+        row = rows[(n, depth, reortho)]
+        row.update(n=n, depth=depth, reortho=reortho, modelled_bytes=modelled)
+        print(f"    modelled traffic re-reading the basis every pass: {modelled / 1e9:.3f} GB, "
+              f"{1e3 * modelled / PEAK_BYTES:.3f} ms at 3.35 TB/s; launches in the main path's VJP: 1",
+              flush=True)
+    if failures:
+        raise RuntimeError(f"K9 disagrees with its plain version in [timing-arnoldi]: {failures}")
+    m, kind, depth, reortho = ARNOLDI_MAIN
+    n = m * m
+    main_run = slice_runs[ARNOLDI_MAIN]
+    profile = main_run["profile"]["fused"]
+    return {
+        "name": "arnoldi_dia_forward", "route": "cuda",
+        "source": "lanczos_adjoints_tpu_torch/csrc/arnoldi_dia.cu",
+        "replaces": "lanczos_adjoints_tpu/ops/pallas_arnoldi.py:40",
+        "also_replaces": "lanczos_adjoints_tpu/ops/pallas_arnoldi.py:112",
+        "launches": main_run["launches"]["fused"]["arnoldi_dia_forward"],
+        **rows[(n, depth, reortho)],
+        "ms_in_vjp": _per_launch_ms(profile["kernels"], "arnoldi_forward_kernel") if profile else None,
+        "launches_per_vjp": {f"{k} K={d} {r} m={g}": run["launches"]["fused"]["arnoldi_dia_forward"]
+                             for (g, k, d, r), run in slice_runs.items()},
+        "by_shape": [rows[key] for key in rows],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -865,6 +1299,18 @@ def main() -> int:
     phase_parity_lanczos()
     slices = {m: phase_slice_sparse(m) for m in SLICE_GRIDS}
     entries += phase_timing_sparse(slices)
+    phase_parity_arnoldi()
+    arnoldi_runs = {shape: phase_slice_arnoldi(*shape) for shape in ARNOLDI_SLICE}
+    slq_run = phase_slice_slq()
+    phase_slice_pde()
+    entries.append(phase_timing_arnoldi(arnoldi_runs))
+    main_arnoldi = arnoldi_runs[ARNOLDI_MAIN]["launches"]["fused"]
+    for entry in entries:
+        # The DIA kernels' launches in the Arnoldi adjoint (main path) and SLQ.
+        if entry["name"] in ("dia_matvec", "dia_dvals"):
+            key = "dia_matvec_transposed" if entry["name"] == "dia_matvec" else "dia_dvals"
+            entry["launches_arnoldi_vjp"] = main_arnoldi[key]
+            entry["launches_slq"] = slq_run["launches"][key]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card)
     print(json.dumps({

@@ -41,38 +41,19 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cooperative.cuh"
 #include "dia_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-// Sum of v over the block, returned to every thread, in a fixed order.
-__device__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();  // the previous use of red is finished
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float s = 0.0f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) s += red[w];
-  return s;
-}
-
-// Sum of the per-block partials, the same in every block.
-__device__ float grid_total(const float* partials, float* red) {
-  float s = 0.0f;
-  for (int b = threadIdx.x; b < gridDim.x; b += blockDim.x) s += __ldcg(partials + b);
-  return block_sum(s, red);
-}
-
-__device__ inline float guarded_div(float v, float norm) {
-  // Krylov exhaustion: a zero norm truncates to zeros instead of 0 / 0.
-  return norm > 0.0f ? v / norm : 0.0f;
-}
+constexpr int kThreads = lat::kCoopThreads;
+constexpr int kWarps = lat::kCoopWarps;
+using lat::block_sum;
+using lat::cooperative_blocks;
+using lat::grid_total;
+using lat::guarded_div;
 
 __global__ void __launch_bounds__(kThreads)
     lanczos_forward_kernel(const float* __restrict__ vals, const float* __restrict__ v0,
@@ -232,24 +213,6 @@ __global__ void __launch_bounds__(kThreads)
   const float s = grid_total(part0, red);
   const float inv = *inv_norm;
   for (int i = first; i < n; i += stride) dv[i] = (s * xs[i] - xi[i]) * inv;
-}
-
-// Blocks for a cooperative launch of `kernel`: all co-resident, at most
-// one per kThreads rows. Returns a CUDA error code.
-template <typename Kernel>
-cudaError_t cooperative_blocks(Kernel kernel, int n, int* blocks) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int need = (n + kThreads - 1) / kThreads;
-  *blocks = per_sm * sms < need ? per_sm * sms : need;
-  return cudaSuccess;
 }
 
 }  // namespace

@@ -9,8 +9,11 @@ and the blocked SLQ integrand).
 ``tridiag``'s adjoint runs the reverse recursion with one operator
 application and one parameter vector-Jacobian product per step,
 ``torch.autograd.grad(matvec(lam, *params), params, x)``; with the DIA
-kernel matvec that is one K4 and one K5 launch. ``reortho="full"`` and
-``integrand_spd`` wait for Arnoldi (slice 3).
+kernel matvec that is one K4 and one K5 launch. ``reortho="full"`` runs
+through Arnoldi (``krylov.arnoldi.hessenberg``: K9 for DIA operators on
+the card) and inherits its re-projected adjoint; the per-probe SLQ
+integrands ``integrand_spd`` (its quadratic form with a Daleckii-Krein
+derivative) and ``integrand_spd_custom_vjp_reuse`` build on it.
 
 In the blocked half ``m`` independent Lanczos recurrences share one
 operator application ``matvec(V, *params)`` on an ``(n, m)`` block per
@@ -33,6 +36,7 @@ from typing import Callable
 
 import torch
 
+from lanczos_adjoints_tpu_torch.krylov import arnoldi
 from lanczos_adjoints_tpu_torch.ops import fused_gram, native
 from lanczos_adjoints_tpu_torch.utils.precision import requires_float32
 
@@ -329,15 +333,16 @@ def tridiag(
     fused DIA kernels on the card, where the JAX package runs its Pallas
     kernels on a TPU; the card has none of the TPU's size limits.
     ``dispatch_log``, if a list, gets one event per call:
-    ``"tridiag:dia_fused"`` or ``"tridiag:generic"``.
-    ``reortho="full"`` needs Arnoldi, which is not ported yet (slice 3).
+    ``"tridiag:dia_fused"`` or ``"tridiag:generic"``; with
+    ``reortho="full"``, ``"tridiag:arnoldi_full"`` followed by
+    ``hessenberg``'s event (``allow_fused`` passes on to it).
     """
     if reortho == "full":
-        msg = (
-            "tridiag(reortho='full') runs through Arnoldi (krylov/arnoldi.py, "
-            "kernel K9), which is not ported yet (slice 3 of ROADMAP.md)"
+        est = _tridiag_via_arnoldi(
+            matvec, krylov_depth, custom_vjp=custom_vjp, allow_fused=allow_fused,
+            dispatch_log=dispatch_log,
         )
-        raise NotImplementedError(msg)
+        return _with_dispatch_event(est, dispatch_log, "tridiag:arnoldi_full")
     if reortho != "none":
         msg = f"reortho={reortho!r} unsupported; choose one of 'full', 'none'."
         raise ValueError(msg)
@@ -392,6 +397,34 @@ def _tridiag_dispatch_dia(plain, dia, krylov_depth, *, dispatch_log=None):
             return fused(vec, params[0])
         _log_dispatch(dispatch_log, "tridiag:generic")
         return plain(vec, *params)
+
+    return estimate
+
+
+def _tridiag_via_arnoldi(matvec, krylov_depth, /, *, custom_vjp, allow_fused, dispatch_log=None):
+    """Full re-orthogonalisation: Arnoldi, read off as a tridiagonal decomposition.
+
+    Arnoldi orthogonalises against the whole basis; its adjoint is the
+    re-projected backward substitution.
+    """
+    hess = arnoldi.hessenberg(
+        matvec, krylov_depth, reortho="full", custom_vjp=custom_vjp,
+        allow_fused=allow_fused, dispatch_log=dispatch_log,
+    )
+
+    def estimate(vec, *params):
+        Q, H, res, _inv_norm = hess(vec, *params)
+        T = 0.5 * (H + H.T)
+        sq = res @ res
+        alive = sq > 0.0
+        res_norm = torch.where(alive, torch.sqrt(torch.where(alive, sq, 1.0)), 0.0)
+        decomposition = (Q.T, (torch.diagonal(T), torch.diagonal(T, 1)))
+        # Happy breakdown leaves an exactly-zero residual: normalise it
+        # safely (the zero vector, like the truncated basis columns).
+        res_unit = torch.where(
+            alive, res / torch.where(alive, res_norm, 1.0), torch.zeros_like(res)
+        )
+        return decomposition, (res_unit, res_norm)
 
     return estimate
 
@@ -519,3 +552,157 @@ def _adjoint(matvec, params, needs, *, vec_norm, xs, alphas, betas, dxs, dalphas
             dparams[i] = torch.zeros_like(params[i])
     dvec = ((xi @ xs[0]) * xs[0] - xi) / vec_norm
     return dvec, dparams
+
+
+# ---------------------------------------------------------------------------
+# Per-probe SLQ integrands
+# ---------------------------------------------------------------------------
+
+
+def _flat_operator(matvec, shape):
+    """``matvec`` on flat vectors for probes of ``shape``.
+
+    A 1-D probe keeps ``matvec`` itself, with its ``.dia_data`` tag, so
+    that ``tridiag`` can dispatch it to the fused kernels.
+    """
+    if len(shape) == 1:
+        return matvec
+
+    def matvec_flat(v_flat, *p):
+        return matvec(v_flat.reshape(shape), *p).reshape(-1)
+
+    return matvec_flat
+
+
+def integrand_spd(
+    matfun: Callable,
+    krylov_depth: int,
+    matvec: Callable,
+    /,
+    *,
+    reortho: str = "full",
+    use_adjoints_for_tridiag: bool = True,
+) -> Callable:
+    """Quadratic form ``|v|^2 e1^T f(T) e1`` for stochastic Lanczos quadrature.
+
+    Returns ``quadform(v0, *params)``, differentiable through the
+    tridiagonalisation adjoint and the Daleckii-Krein derivative of the
+    small matrix function.
+    """
+
+    def quadform(v0, *parameters):
+        flat = v0.reshape(-1)
+        scale = torch.linalg.vector_norm(flat)
+        factorise = tridiag(
+            _flat_operator(matvec, v0.shape), krylov_depth, reortho=reortho,
+            custom_vjp=use_adjoints_for_tridiag,
+        )
+        (_basis, (diags, offdiags)), _remainder = factorise(flat / scale, *parameters)
+        return scale**2 * _QuadformTridiag.apply(matfun, diags, offdiags)
+
+    return quadform
+
+
+def _quadform_value(matfun, diags, offdiags):
+    eigvals, eigvecs = _eigh_tridiag(diags, offdiags)
+    fx = torch.func.vmap(matfun)(eigvals)
+    u = eigvecs[0, :]
+    return torch.dot(u, fx * u), (eigvals, eigvecs, fx)
+
+
+class _QuadformTridiag(torch.autograd.Function):
+    """``e1^T f(T) e1`` with a degeneracy-safe derivative.
+
+    Differentiating through ``eigh`` divides eigenvector cotangents by
+    eigenvalue gaps: NaN on clustered or ghost Ritz values and on the
+    exactly degenerate zero block an exhausted Krylov space leaves. The
+    backward pass uses the Daleckii-Krein form of the Frechet derivative
+    instead: with ``T = V diag(lam) V^T`` and ``u = V[0, :]``,
+    ``d/dT = V (Phi o u u^T) V^T``, ``Phi_ij = (f(lam_i) - f(lam_j)) /
+    (lam_i - lam_j)`` and ``f'`` (the midpoint derivative) where the gap
+    is below ``sqrt(eps)`` times the scale. Finite for any spectrum.
+    """
+
+    @staticmethod
+    def forward(ctx, matfun, diags, offdiags):
+        value, (eigvals, eigvecs, fx) = _quadform_value(matfun, diags, offdiags)
+        ctx.matfun = matfun
+        ctx.save_for_backward(eigvals, eigvecs, fx)
+        return value
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        eigvals, eigvecs, fx = ctx.saved_tensors
+        dfx = torch.func.vmap(torch.func.grad(ctx.matfun))(eigvals)
+        gaps = eigvals[:, None] - eigvals[None, :]
+        eps = torch.finfo(eigvals.dtype).eps
+        tiny = eps**0.5 * (eigvals[:, None].abs() + eigvals[None, :].abs() + eps)
+        near = gaps.abs() <= tiny
+        phi = torch.where(
+            near,
+            0.5 * (dfx[:, None] + dfx[None, :]),
+            (fx[:, None] - fx[None, :]) / torch.where(near, 1.0, gaps),
+        )
+        u = eigvecs[0, :]
+        grad_T = eigvecs @ (phi * torch.outer(u, u)) @ eigvecs.T
+        d_diags = cotangent * torch.diagonal(grad_T)
+        d_offdiags = cotangent * (torch.diagonal(grad_T, 1) + torch.diagonal(grad_T, -1))
+        return None, d_diags, d_offdiags
+
+
+def integrand_spd_custom_vjp_reuse(
+    matfun: Callable, krylov_depth: int, matvec: Callable, /, *, reortho: str = "full"
+) -> Callable:
+    """SLQ integrand whose VJP reuses the forward Lanczos decomposition.
+
+    One extra operator VJP in the backward pass (Dong et al., NeurIPS
+    2017 style inexact gradients); no higher derivatives. The gradient
+    with respect to the probe, ``2 f(A) v0``, comes from the cached
+    decomposition at no extra operator application, as in the JAX
+    package.
+    """
+
+    @requires_float32
+    def quadform(v0, *parameters):
+        return _QuadformReuse.apply(matfun, krylov_depth, matvec, reortho, v0, *parameters)
+
+    return quadform
+
+
+class _QuadformReuse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, matfun, krylov_depth, matvec, reortho, v0, *parameters):
+        matvec_flat = _flat_operator(matvec, v0.shape)
+        flat = v0.reshape(-1)
+        scale = torch.linalg.vector_norm(flat)
+        v0_unit = flat / scale
+        factorise = tridiag(matvec_flat, krylov_depth, reortho=reortho, custom_vjp=False)
+        (basis, (diags, offdiags)), _remainder = factorise(v0_unit, *parameters)
+
+        value, (eigvals, eigvecs, fx) = _quadform_value(matfun, diags, offdiags)
+        first = eigvecs[0, :]
+        # The direction pair (w1, w2) makes the backward pass one parameter
+        # VJP of w1^T A w2; f(A) v0 in the Krylov space gives the probe's.
+        dfx = torch.func.vmap(torch.func.grad(matfun))(eigvals)
+        w1 = scale**2 * (basis.T @ (eigvecs @ (dfx * first)))
+        f_of_a_v0 = scale * (basis.T @ (eigvecs @ (fx * first)))
+        ctx.matvec_flat = matvec_flat
+        ctx.v0_shape = v0.shape
+        ctx.save_for_backward(w1, v0_unit, f_of_a_v0, *parameters)
+        return scale**2 * value
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        w1, w2, f_of_a_v0, *parameters = ctx.saved_tensors
+        needs = ctx.needs_input_grad[5:]
+        wanted = [i for i, need in enumerate(needs) if need]
+        grads = [None] * len(parameters)
+        if wanted:
+            with torch.enable_grad():
+                p = [x.detach().requires_grad_(i in wanted) for i, x in enumerate(parameters)]
+                out = torch.dot(ctx.matvec_flat(w2, *p), w1)
+                found = torch.autograd.grad(out, [p[i] for i in wanted], allow_unused=True)
+            for i, g in zip(wanted, found):
+                grads[i] = cotangent * (torch.zeros_like(parameters[i]) if g is None else g)
+        dv0 = (cotangent * 2.0 * f_of_a_v0).reshape(ctx.v0_shape)
+        return (None, None, None, None, dv0, *grads)

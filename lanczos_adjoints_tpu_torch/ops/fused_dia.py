@@ -34,10 +34,6 @@ DIA_DVALS = native.Kernel("dia_dvals", "dia", "lat_dia_dvals")
 LANES, SUBLANES = 128, 8  # the JAX kernel's tiling, kept for its n % 1024 rule
 
 
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def check_operands(*arrays):
     """The operands' common device; raises on what the DIA kernels do not take."""
     device = arrays[0].device
@@ -98,7 +94,7 @@ def dia_matvec_rows(offsets, x, vals, *, kernel=DIA_MATVEC):
     with torch.cuda.device(device):
         kernel.launch(
             x.data_ptr(), vals.data_ptr(), out.data_ptr(), n, len(offsets),
-            native.offsets_arg(offsets, n), _stream(device),
+            native.offsets_arg(offsets, n), native.stream(device),
         )
     return out
 
@@ -116,7 +112,7 @@ def dia_dvals_rows(offsets, x, u):
     with torch.cuda.device(device):
         DIA_DVALS.launch(
             x.data_ptr(), u.data_ptr(), dvals.data_ptr(), n, len(offsets),
-            native.offsets_arg(offsets, n), _stream(device),
+            native.offsets_arg(offsets, n), native.stream(device),
         )
     return dvals
 

@@ -82,10 +82,6 @@ def _check(kind, *arrays):
     return device
 
 
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 # ---------------------------------------------------------------------------
 # Plain versions (CPU path and the kernels' oracle on the card)
 # ---------------------------------------------------------------------------
@@ -181,7 +177,7 @@ def gram_matvec_rows(kind, xs, ys, v2):
     with torch.cuda.device(device):
         GRAM_MATVEC.launch(
             _KIND_ID[kind], xs.data_ptr(), ys.data_ptr(), v2.data_ptr(),
-            out.data_ptr(), n, n_cols, m, width, _stream(device),
+            out.data_ptr(), n, n_cols, m, width, native.stream(device),
         )
     return out
 
@@ -210,7 +206,7 @@ def gram_grads_rows(kind, xs, ys, v2, u2):
         GRAM_GRADS.launch(
             _KIND_ID[kind], xs.data_ptr(), ys.data_ptr(), v2.data_ptr(),
             u2.data_ptr(), partials.data_ptr(), n, n_cols, m, width,
-            _stream(device),
+            native.stream(device),
         )
     return partials.sum(dim=0)
 

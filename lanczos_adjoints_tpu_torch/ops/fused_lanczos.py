@@ -30,7 +30,7 @@ LANES = 128  # the JAX kernel's lane width, kept for its n % 128 rule
 _PARTIALS = 3 * 8192
 
 
-def _guarded_div(vec, norm):
+def guarded_div(vec, norm):
     """``vec / norm``, or zeros where ``norm`` is not positive."""
     keep = norm > 0.0
     return torch.where(keep, vec / torch.where(keep, norm, 1.0), torch.zeros_like(vec))
@@ -44,7 +44,7 @@ def _guarded_div(vec, norm):
 def lanczos_forward_plain(offsets, vals, v0, depth):
     """Plain K6: ``(xs (K+1, n), alphas (K,), betas (K,))``."""
     norm0 = torch.sqrt(torch.dot(v0, v0))
-    x = _guarded_div(v0, norm0)
+    x = guarded_div(v0, norm0)
     x_prev = torch.zeros_like(x)
     beta = torch.zeros((), dtype=x.dtype, device=x.device)
     xs, alphas, betas = [x], [], []
@@ -53,7 +53,7 @@ def lanczos_forward_plain(offsets, vals, v0, depth):
         alpha = torch.dot(x, ax)
         resid = ax - alpha * x - beta * x_prev
         beta = torch.sqrt(torch.dot(resid, resid))
-        x_prev, x = x, _guarded_div(resid, beta)
+        x_prev, x = x, guarded_div(resid, beta)
         xs.append(x)
         alphas.append(alpha)
         betas.append(beta)
@@ -71,7 +71,7 @@ def lanczos_adjoint_plain(offsets, vals, xs, alphas, betas, inv_norm, dxs, dalph
         alpha, beta = alphas[i], betas[i]
         # A zero beta decouples the truncated trailing block: its adjoint
         # vector is zero, not xi / 0.
-        xi = _guarded_div(xi, beta)
+        xi = guarded_div(xi, beta)
         mu = dbetas[i] - torch.dot(lam_next, x) + torch.dot(x_next, xi)
         nu = dalphas[i] + torch.dot(x, xi)
         lam = -xi + mu * x_next + nu * x
@@ -92,10 +92,6 @@ def lanczos_adjoint_plain(offsets, vals, xs, alphas, betas, inv_norm, dxs, dalph
 # ---------------------------------------------------------------------------
 
 
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def lanczos_forward_rows(offsets, vals, v0, depth):
     """K6: ``vals (D, n)``, ``v0 (n,)`` -> ``(xs (K+1, n), alphas (K,), betas (K,))``."""
     device = fused_dia.check_operands(vals, v0)
@@ -113,7 +109,7 @@ def lanczos_forward_rows(offsets, vals, v0, depth):
         LANCZOS_FORWARD.launch(
             vals.data_ptr(), v0.data_ptr(), xs.data_ptr(), coef[0].data_ptr(),
             coef[1].data_ptr(), work.data_ptr(), partials.data_ptr(), _PARTIALS, n,
-            len(offsets), native.offsets_arg(offsets, n), depth, _stream(device),
+            len(offsets), native.offsets_arg(offsets, n), depth, native.stream(device),
         )
     return xs, coef[0], coef[1]
 
@@ -150,7 +146,7 @@ def lanczos_adjoint_rows(offsets, vals, xs, alphas, betas, inv_norm, dxs, dalpha
             betas.data_ptr(), dalphas.data_ptr(), dbetas.data_ptr(), inv_norm.data_ptr(),
             dv.data_ptr(), dvals.data_ptr(), xi.data_ptr(), lam.data_ptr(),
             partials.data_ptr(), _PARTIALS, n, len(offsets),
-            native.offsets_arg(offsets, n), depth, _stream(device),
+            native.offsets_arg(offsets, n), depth, native.stream(device),
         )
     return dv, dvals
 

@@ -24,7 +24,7 @@ import torch
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
-SOURCES = ("gram_matvec", "gram_grads", "dia", "lanczos_dia")
+SOURCES = ("gram_matvec", "gram_grads", "dia", "lanczos_dia", "arnoldi_dia")
 FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -52,6 +52,12 @@ _SIGNATURES = {
         "lat_lanczos_dia_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P),
         "lat_lanczos_dia_adjoint": (
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P,
+        ),
+    },
+    "arnoldi_dia": {
+        "lat_arnoldi_dia_grid": (_I, _P),
+        "lat_arnoldi_dia_forward": (
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P,
         ),
     },
 }
@@ -177,6 +183,11 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict:
     return {name: kernel.launches for name, kernel in KERNELS.items()}
+
+
+def stream(device) -> int:
+    """The handle of PyTorch's current CUDA stream on ``device``, for a launch."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def on_card(device) -> bool:

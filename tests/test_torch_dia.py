@@ -160,13 +160,15 @@ def test_offsets_reach_the_kernels_reduced_modulo_n():
 
 
 def test_one_registry_holds_every_kernel_and_counts_only_launches():
-    from lanczos_adjoints_tpu_torch.ops import fused_gram, fused_lanczos  # noqa: F401
+    from lanczos_adjoints_tpu_torch.ops import fused_arnoldi, fused_gram, fused_lanczos  # noqa: F401
 
     assert sorted(native.KERNELS) == [
-        "dia_dvals", "dia_matvec", "dia_matvec_transposed", "gram_grads", "gram_matvec",
-        "lanczos_dia_adjoint", "lanczos_dia_forward",
+        "arnoldi_dia_forward", "dia_dvals", "dia_matvec", "dia_matvec_transposed", "gram_grads",
+        "gram_matvec", "lanczos_dia_adjoint", "lanczos_dia_forward",
     ]
     assert native.KERNELS["lanczos_dia_forward"] is fused_lanczos.LANCZOS_FORWARD
+    assert native.KERNELS["arnoldi_dia_forward"] is fused_arnoldi.ARNOLDI_FORWARD
+    assert set(native.SOURCES) == {k.source for k in native.KERNELS.values()}
     with pytest.raises(ValueError, match="twice"):
         native.Kernel("dia_matvec", "dia", "lat_dia_matvec")
     native.KERNELS["dia_dvals"].launches = 3

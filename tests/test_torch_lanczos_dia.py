@@ -396,8 +396,19 @@ def test_bad_reortho_is_the_jax_packages_value_error():
 
 
 def test_full_reortho_waits_for_arnoldi():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        lanczos.tridiag(lambda v: v, 3, reortho="full")
+    """``reortho="full"`` runs through Arnoldi (ported in slice 3): the JAX
+    package's decomposition, and its dispatch events in the port's names."""
+    A = _dense_sym(10, seed=12).astype(np.float32)
+    v = np.random.default_rng(13).standard_normal(10).astype(np.float32)
+    log_j, log_t = [], []
+    out_j = _jax_done(jlanczos.tridiag(lambda s, p: (p + p.T) @ s, 6, reortho="full", dispatch_log=log_j)(
+        jnp.asarray(v), jnp.asarray(A)))
+    out_t = lanczos.tridiag(lambda s, p: (p + p.T) @ s, 6, reortho="full", dispatch_log=log_t)(
+        torch.tensor(v), torch.tensor(A))
+    for got, want in zip(jax.tree_util.tree_leaves(out_t), jax.tree_util.tree_leaves(out_j)):
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    assert log_j == ["tridiag:arnoldi_full", "hessenberg:xla_loop"]
+    assert log_t == ["tridiag:arnoldi_full", "hessenberg:generic"]
 
 
 def test_depth_beyond_n_is_the_jax_packages_value_error():
