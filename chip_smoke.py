@@ -56,8 +56,25 @@ Phases, in order:
      closed-form log-determinant;
  13. the wave-PDE training step at 128 x 128 on the bundled pairs: the
      adjoint gradient against backprop, then three Adam steps;
- 14. K9's time per launch beside its bound and plain version. The
-     kernels of every slice, with their numbers, form one JSON line.
+ 14. K9's time per launch beside its bound and plain version;
+ 15. K3 parity (``csrc/gram_dgrads.cu``): the data-gradient moments
+     against their plain version at [parity]'s rows, bit for bit across
+     two runs, and the Function's x and y gradients against autograd
+     through the plain matvec (run after phase 5);
+ 16. the input-gradient slice: at N = 2,048 the gradient in the
+     parameters and the training inputs through the kernels against the
+     plain policy, then one step at N_train = 400,000 with its launches
+     (K3 is timed with K1 and K2 in phase 4's table);
+ 17. BSR parity: K10 (``csrc/bsr.cu``) and its Function's backward
+     against the plain versions on the FEM test matrix (grid 24), its
+     RCM permutation and a ragged rectangular matrix;
+ 18. the BSR slice: the FEM matrix -> ``sparse_operator`` (BSR, K10) ->
+     the Lanczos (K = 90) and re-orthogonalised Arnoldi VJPs, custom
+     adjoint and backprop, per-probe SLQ against a float64 dense
+     Cholesky log-determinant, and one Lanczos VJP over a HYB operator;
+ 19. K10's time per launch beside its bound, plain version and
+     cuSPARSE. The kernels of every slice, with their numbers, form one
+     JSON line.
 The last two lines are the card (``name, power.limit``) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -81,6 +98,10 @@ PEAK_BYTES = 3.35e12
 # differ only in summation order and fused multiply-adds.
 TOL_K1 = 1e-4
 TOL_K2 = 1e-3  # sums over millions of cells of both signs
+# K3 (data gradients): ten times the JAX fused-kernel tests' value
+# tolerance per family, as those tests hold the data gradients
+# (tests/test_ops/test_pallas_gram.py:23, :163).
+TOL_K3 = {"rbf": 1e-3, "matern12": 5e-2, "matern32": 1e-3}
 
 # DIA kernels (K4 and its transpose) vs plain: an output is a sum of
 # D <= 5 float32 products taken in another order, with fused
@@ -202,17 +223,17 @@ def phase_parity(device="cuda", rows=(3001, 2777), kinds=("rbf", "matern12", "ma
 
 
 def _plain_policy():
-    """The fused policy's shape with the plain, autograd-differentiated matvec."""
+    """The fused policy's shape with the plain, autograd-differentiated matvec
+    (on index-based kernels and, for input gradients, on feature rows)."""
     from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
 
     def matvec(fun):
         kind, constrain = fun.fused_spec
-        inputs, _noise = fun.fused_data
+        indexed = getattr(fun, "fused_data", None)
 
         def matvec_y(i, j, v, raw_ell, raw_out):
-            return fg.gram_matvec_reference(
-                kind, inputs[i], inputs[j], v, constrain(raw_ell), constrain(raw_out)
-            )
+            x, y = (i, j) if indexed is None else (indexed[0][i], indexed[0][j])
+            return fg.gram_matvec_reference(kind, x, y, v, constrain(raw_ell), constrain(raw_out))
 
         return matvec_y
 
@@ -319,14 +340,139 @@ def phase_slice(n_train, steps):
     return {"launches": totals, "per_step": per_step, "step_s": times}
 
 
+def phase_parity_dgrads(rows=(3001, 2777), kinds=("rbf", "matern12", "matern32"),
+                        dims=(1, 8, 12, 40)):
+    """K3 against its plain version at [parity]'s rows, bit for bit across
+    two runs; the Function's x and y gradients (K3 twice) against autograd
+    through the plain matvec."""
+    from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
+
+    print("[parity-dgrads] K3 vs its plain version on the card", flush=True)
+    failures = []
+    rng = np.random.default_rng(10)
+    n, n_cols = rows
+    for kind in kinds:
+        tol = TOL_K3[kind]
+        for d in dims:
+            x, y = _tensor(rng, (n, d)), _tensor(rng, (n_cols, d))
+            ell = torch.tensor(rng.uniform(0.5, 2.0, d), dtype=torch.float32, device=DEVICE)
+            xs, ys = fg.kernel_rows(x, ell, kind), fg.kernel_rows(y, ell, kind)
+            for m in (1, 225):
+                v, u = _tensor(rng, (n_cols, m)), _tensor(rng, (n, m))
+                got = fg.gram_dgrads_rows(kind, xs, ys, v, u)
+                again = fg.gram_dgrads_rows(kind, xs, ys, v, u)
+                want = fg.gram_dgrads_plain(kind, xs, ys, v, u)
+                torch.cuda.synchronize()
+                tag = f"K3 {kind} d={d} m={m}"
+                _report(tag, _rel_err(got, want), tol, failures)
+                if not torch.equal(got, again):
+                    print(f"  {tag}: two runs differ FAIL", flush=True)
+                    failures.append(f"{tag} bitwise")
+            # The Function's data gradients (rectangular, m = 15) against
+            # autograd through the plain composition.
+            v, u = _tensor(rng, (n_cols, 15)), _tensor(rng, (n, 15))
+            out_s = torch.tensor(1.3, device=DEVICE)
+            grads = []
+            for fn in (fg.gram_matvec_fused(kind, data_grads=True),
+                       functools.partial(fg.gram_matvec_reference, kind)):
+                args = [x.clone().requires_grad_(), y.clone().requires_grad_()]
+                grads.append(torch.autograd.grad(fn(*args, v, ell, out_s), args, u))
+            torch.cuda.synchronize()
+            for name, a, b in zip(("dx", "dy"), *grads):
+                _report(f"K3 vjp {name} {kind} d={d} m=15", _rel_err(a, b), tol, failures)
+    print("  K3 bitwise across two runs at every shape: "
+          f"{not any(f.endswith('bitwise') for f in failures)}", flush=True)
+    if failures:
+        msg = f"{len(failures)} K3 parity checks failed: {failures[:5]}"
+        raise RuntimeError(msg)
+
+
+def _dgrads_step(stack, params, X, y, key):
+    """The negative MLL and its gradient in the flat parameters and the inputs."""
+    p = params.clone().requires_grad_()
+    xs = X.clone().requires_grad_()
+    value, info = stack.mll_lanczos(p, key, xs, y)
+    dp, dx = torch.autograd.grad(value, [p, xs])
+    return value.detach(), dp, dx, info
+
+
+def phase_slice_dgrads(n_train, n_oracle=2048):
+    """The GP step differentiated in the parameters and the training inputs
+    (``gram_matvec_fused(data_grads=True)``): at N = 2,048 against the plain
+    policy, then one step at the reference's largest configuration."""
+    from lanczos_adjoints_tpu_torch.ops import gram, native
+    from lanczos_adjoints_tpu_torch.train import gp as train_gp
+
+    print(f"[slice-dgrads] N={n_oracle}: input gradients, kernels vs plain versions", flush=True)
+    X, y = _data(n_oracle, seed=0)
+    rng = np.random.default_rng(0)
+    params = torch.tensor(np.concatenate([[0.0], rng.uniform(0.0, 1.0, 8), [0.5], [-1.0]]),
+                          dtype=torch.float32, device=DEVICE)
+    probes = torch.tensor(rng.choice([-1.0, 1.0], size=(16, n_oracle)), dtype=torch.float32,
+                          device=DEVICE)
+    results = []
+    for policy in (gram.gram_matvec_fused(data_grads=True), _plain_policy()):
+        stack = train_gp.assemble(
+            n_train=n_oracle, ndim=8, num_matvecs=20, num_samples=16, rank_precon=128,
+            precon_block=64, cg_tol=1e-4, cg_rtol=1e-4, cg_maxiter=100, cg_miniter=2,
+            sample=lambda _key: probes, matvec=policy, device=DEVICE,
+        )
+        results.append(_dgrads_step(stack, params, X, y, None))
+        torch.cuda.synchronize()
+    failures = []
+    for label, i in (("parameters", 1), ("inputs", 2)):
+        err = _rel_err(results[0][i], results[1][i])
+        finite = bool(torch.isfinite(results[0][i]).all())
+        print(f"  gradient in the {label}: kernels vs plain max err {err:.2e} of the largest entry "
+              f"(tol 1e-03), finite {finite}, max |grad| {float(results[1][i].abs().max()):.4e}",
+              flush=True)
+        if not (err <= 1e-3 and finite):
+            failures.append(label)
+    print(f"  loss: kernels {results[0][0].item():.7f} vs plain {results[1][0].item():.7f}")
+    if failures:
+        raise RuntimeError(f"input-gradient oracle failed: {failures}")
+
+    X, y = _data(n_train)
+    stack = train_gp.assemble(n_train=n_train, ndim=8, matvec=gram.gram_matvec_fused(data_grads=True),
+                              device=DEVICE)
+    print(f"[slice-dgrads] one step in the parameters and the inputs: matern32 ARD, N_train={n_train}, "
+          f"d=8, 15 Lanczos x 15 probes, PCG atol=1.0 miniter=10 maxiter=25, rank {stack.rank}",
+          flush=True)
+    params = torch.randn(stack.num_params, generator=torch.Generator().manual_seed(1)).to(DEVICE)
+    key = torch.Generator(device=DEVICE).manual_seed(1)
+    names = ("gram_matvec", "gram_grads", "gram_dgrads")
+    native.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value, dp, dx, info = _dgrads_step(stack, params, X, y, key)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = [native.KERNELS[k].launches for k in names]
+    cg_steps = int(float(info["logpdf"]["solve"]["num_steps"]))
+    # K1: 15 blocked Lanczos steps forward and 15 in the adjoint (m = 15),
+    # 1 + s for the forward PCG and 1 + s for the backward solve (m = 1;
+    # at atol = 1.0 both stop at miniter, s = 10). K2: one wide parameter
+    # VJP in the SLQ adjoint (m = 225) and one in the CG backward (m = 1).
+    # K3: dx and dy in each of those two VJPs.
+    predicted = [30 + 2 * (1 + cg_steps), 2, 4]
+    finite = all(bool(torch.isfinite(t).all()) for t in (value, dp, dx))
+    print(f"  loss {value.item():.6f} cg_steps {cg_steps} wall {seconds:.3f} s launches K1 {counts[0]} "
+          f"K2 {counts[1]} K3 {counts[2]} (predicted {predicted}); gradient finite {finite}, "
+          f"max |dL/dx| {float(dx.abs().max()):.4e}, shape {tuple(dx.shape)}", flush=True)
+    if counts != predicted or not finite:
+        raise RuntimeError(f"input-gradient step failed (launches {counts}, finite {finite})")
+    return {"launches": counts, "per_step": [counts], "step_s": [seconds]}
+
+
 def _cell_ops(kernel, m, d=8):
-    """fp32 operations per cell: distance 3d, Matern-3/2 value 5 (K1) or
-    value and derivative plus the weighted sums 5d + 9 (K2), contraction 2m."""
-    return 2 * m + (3 * d + 5 if kernel == "K1" else 5 * d + 9)
+    """fp32 operations per cell: distance 3d, Matern-3/2 value 5 (K1),
+    value and derivative plus the weighted sums 5d + 9 (K2) or the
+    derivative and the moments 5d + 10 (K3); contraction 2m."""
+    return 2 * m + {"K1": 3 * d + 5, "K2": 5 * d + 9, "K3": 5 * d + 10}[kernel]
 
 
-def phase_timing(n, slice_counts):
-    """Gram kernel and plain times at the GP slice's shapes; their kernels-line entries."""
+def phase_timing(n, slice_counts, dgrads_counts):
+    """Gram kernel and plain times at the GP slices' shapes; their kernels-line entries."""
     from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
     from lanczos_adjoints_tpu_torch.utils.timing import events_ms
 
@@ -335,7 +481,7 @@ def phase_timing(n, slice_counts):
     X = torch.randn((n, 8), generator=g, device=DEVICE)
     ell = torch.full((8,), 0.9, device=DEVICE)
     xs = fg.kernel_rows(X, ell, "matern32")
-    kinds = {"K1": [1, 15], "K2": [1, 225]}
+    kinds = {"K1": [1, 15], "K2": [1, 225], "K3": [1, 225]}
     shapes = {}
     for kernel, ms_ in kinds.items():
         for m in ms_:
@@ -345,10 +491,14 @@ def phase_timing(n, slice_counts):
                 run = lambda: fg.gram_matvec_rows("matern32", xs, xs, v)  # noqa: E731
                 plain = lambda: fg.gram_matvec_plain("matern32", xs, xs, v)  # noqa: E731
                 nbytes = 4 * (2 * n * 8 + 2 * n * m)
-            else:
+            elif kernel == "K2":
                 run = lambda: fg.gram_grads_rows("matern32", xs, xs, v, u)  # noqa: E731
                 plain = lambda: fg.gram_grads_plain("matern32", xs, xs, v, u)  # noqa: E731
                 nbytes = 4 * (2 * n * 8 + 2 * n * m + (n // 64 + 1) * 9)
+            else:
+                run = lambda: fg.gram_dgrads_rows("matern32", xs, xs, v, u)  # noqa: E731
+                plain = lambda: fg.gram_dgrads_plain("matern32", xs, xs, v, u)  # noqa: E731
+                nbytes = 4 * (2 * n * 8 + 2 * n * m + n * 9)
             got = run()  # warm-up, and the value held against the plain one
             ms = events_ms(run, 2)
             # One timed plain run: it loops over thousands of row chunks,
@@ -367,7 +517,7 @@ def phase_timing(n, slice_counts):
             }
             print(f"  {kernel} m={m}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
                   f"{bound_ms:.3f} ms ({by}), max abs err {err:.3e} (rel {rel:.2e})", flush=True)
-            tol = TOL_K1 if kernel == "K1" else TOL_K2
+            tol = {"K1": TOL_K1, "K2": TOL_K2, "K3": TOL_K3["matern32"]}[kernel]
             if not rel <= tol:
                 raise RuntimeError(f"{kernel} m={m} disagrees with its plain version at N={n}")
             del v, u, got, want
@@ -377,13 +527,17 @@ def phase_timing(n, slice_counts):
                "lanczos_adjoints_tpu/ops/pallas_gram.py:188", 15),
         "K2": ("gram_grads", "lanczos_adjoints_tpu_torch/csrc/gram_grads.cu",
                "lanczos_adjoints_tpu/ops/pallas_gram.py:214", 225),
+        "K3": ("gram_dgrads", "lanczos_adjoints_tpu_torch/csrc/gram_dgrads.cu",
+               "lanczos_adjoints_tpu/ops/pallas_gram.py:297", 225),
     }
     for idx, (kernel, (name, source, replaces, main_m)) in enumerate(meta.items()):
         main = shapes[(kernel, main_m)]
+        # K1/K2 on the main path: the training steps; K3: the input-gradient step.
+        counts = dgrads_counts if kernel == "K3" else slice_counts
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": slice_counts["launches"][idx],
-            "launches_per_step": [c[idx] for c in slice_counts["per_step"]],
+            "launches": counts["launches"][idx],
+            "launches_per_step": [c[idx] for c in counts["per_step"]],
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
@@ -1281,6 +1435,307 @@ def phase_timing_arnoldi(slice_runs):
     }
 
 
+# ---------------------------------------------------------------------------
+# The BSR slice: the block-ELL matvec (K10) under the Lanczos and Arnoldi VJPs
+# ---------------------------------------------------------------------------
+
+# The FEM test matrix of the JAX SpMV benchmark (spmv_formats/benchmark.py:57):
+# a bcsstk-class 3-D stiffness pattern, n = 41,472, ~81 nnz a row.
+BSR_GRID, BSR_DEPTH, BSR_PROBES = 24, 90, 10
+# K10 vs its plain version: an output sums ~1,000 stored slots (mostly
+# zero) in float32 in another order, with fused multiply-adds.
+TOL_BSR = 1e-5
+# The HYB route: spmv_formats/benchmark.py:37-42's random matrix, 8 entries a row.
+HYB_N, HYB_PER_ROW = 65_536, 8
+BSR_KERNELS = ("bsr_spmv",)
+
+
+def _fem(rcm=False):
+    from lanczos_adjoints_tpu_torch.ops import fused_bsr, sparse
+
+    mat = fused_bsr.fem_test_matrix(BSR_GRID, dofs=3)
+    if rcm:
+        mat = sparse.permute_symmetric(mat, sparse.reverse_cuthill_mckee(mat))
+    bsr = sparse.bsr_pack(mat, device=DEVICE)
+    return mat, bsr, sparse.bsr_values(bsr, mat.data, device=DEVICE)
+
+
+def _random_csr(n, per_row, seed=0):
+    """spmv_formats/benchmark.py:37-42's random matrix."""
+    from lanczos_adjoints_tpu_torch.ops import sparse
+
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), per_row)
+    cols = rng.integers(0, n, len(rows))
+    return sparse.csr_from_coo(rows, cols, rng.normal(size=len(rows)), shape=(n, n))
+
+
+def phase_parity_bsr():
+    """K10 and its Function's backward (K10 for dv, the dtiles broadcast)
+    against the plain versions, on the FEM matrix, its RCM permutation and
+    a ragged rectangular matrix, 8 operand sets each."""
+    from lanczos_adjoints_tpu_torch.ops import fused_bsr, sparse
+
+    print("[parity-bsr] K10 vs its plain version on the card", flush=True)
+    failures = []
+    rng = np.random.default_rng(11)
+    rect = _random_csr(3001, 40)
+    rect = sparse.csr_from_coo(rect.rows, rect.indices % 2777, rect.data, shape=(3001, 2777))
+    cases = [("fem", *_fem()), ("fem rcm", *_fem(rcm=True)),
+             ("random 3001x2777", rect, sparse.bsr_pack(rect, device=DEVICE), None)]
+    for name, mat, bsr, tiles in cases:
+        if tiles is None:
+            tiles = sparse.bsr_values(bsr, mat.data, device=DEVICE)
+        symmetric = mat.shape[0] == mat.shape[1]
+        errs = []
+        for _ in range(ROTATE_SETS):
+            v = _tensor(rng, mat.shape[1])
+            errs.append(_rel_err(fused_bsr.bsr_spmv_rows(bsr, v, tiles), fused_bsr.bsr_spmv_plain(bsr, v, tiles)))
+        torch.cuda.synchronize()
+        print(f"  {name}: n={mat.shape} nnz={mat.nnz} width={bsr.width} fill "
+              f"{mat.nnz / bsr.num_slots:.4f} tiles {4 * bsr.num_slots / 1e6:.1f} MB", flush=True)
+        _report(f"K10 {name} ({ROTATE_SETS} sets, worst)", max(errs), TOL_BSR, failures)
+        v, u = _tensor(rng, mat.shape[1]), _tensor(rng, mat.shape[0])
+        grads = []
+        for fn in (fused_bsr.bsr_matvec_fused(bsr, symmetric=symmetric), sparse.bsr_matvec_fn(bsr)):
+            args = [v.clone().requires_grad_(), tiles.clone().requires_grad_()]
+            grads.append(torch.autograd.grad(fn(*args), args, u))
+        torch.cuda.synchronize()
+        _report(f"K10 vjp dv {name} ({'K10' if symmetric else 'scatter-add'})",
+                _rel_err(grads[0][0], grads[1][0]), TOL_BSR, failures)
+        _report(f"K10 vjp dtiles {name}", _rel_err(grads[0][1], grads[1][1]), TOL_BSR, failures)
+        del tiles, grads
+    if failures:
+        msg = f"{len(failures)} BSR parity checks failed: {failures[:5]}"
+        raise RuntimeError(msg)
+
+
+def _symmetrised_entries(mat, bsr):
+    """``dtiles -> g_ij + g_ji``: the tile gradient at the stored entries, symmetrised.
+
+    For a symmetric operator the Lanczos adjoint returns the gradient along
+    symmetric perturbations; backprop through the loop returns the full
+    one. The two agree on this part.
+    """
+    a = np.lexsort((mat.indices, mat.rows))
+    b = np.lexsort((mat.rows, mat.indices))
+    transpose = np.empty(mat.nnz, dtype=np.int64)
+    transpose[a] = b
+    entries = torch.as_tensor(bsr.scatter_idx, device=DEVICE)
+    transpose = torch.as_tensor(transpose, device=DEVICE)
+
+    def symmetrised(dtiles):
+        g = dtiles.reshape(-1)[entries]
+        return g + g[transpose]
+
+    return symmetrised
+
+
+def _dense_logdet(mat):
+    """log det of the CSR matrix by a float64 dense Cholesky on the card."""
+    n = mat.shape[0]
+    dense = torch.zeros((n, n), dtype=torch.float64, device=DEVICE)
+    dense[torch.as_tensor(mat.rows, device=DEVICE), torch.as_tensor(mat.indices, device=DEVICE)] = (
+        torch.as_tensor(mat.data, dtype=torch.float64, device=DEVICE))
+    chol = torch.linalg.cholesky(dense)
+    del dense
+    value = 2.0 * float(torch.sum(torch.log(torch.diagonal(chol))))
+    del chol
+    torch.cuda.empty_cache()
+    return value
+
+
+def phase_slice_bsr():
+    """The JAX VJP benchmark's flow on the FEM matrix through the port's
+    entry points: ``sparse_operator`` (BSR, K10) -> ``tridiag`` and
+    ``hessenberg`` at K = 90, custom adjoint and backprop; per-probe SLQ
+    in the tiles; one Lanczos VJP over a HYB operator."""
+    from lanczos_adjoints_tpu_torch.krylov import arnoldi, lanczos
+    from lanczos_adjoints_tpu_torch.ops import native, sparse
+    from lanczos_adjoints_tpu_torch.trace import hutchinson, slq
+    from lanczos_adjoints_tpu_torch.utils.timing import events_ms
+
+    mat, bsr, _tiles = _fem()
+    del _tiles
+    matvec, tiles, info = sparse.sparse_operator(mat, with_info=True, device=DEVICE)
+    n = mat.shape[0]
+    v0 = torch.ones(n, device=DEVICE)
+    print(f"[slice-bsr] FEM grid {BSR_GRID}, 3 dofs: n={n} nnz={mat.nnz} format={info.format} "
+          f"width={bsr.width} fill={info.fill_efficiency:.4f} tiles {4 * info.stored_slots / 1e6:.1f} MB, "
+          f"K={BSR_DEPTH}, one VJP with the all-ones cotangent per route", flush=True)
+    failures = [] if info.format == "bsr" else ["format"]
+    logs = {"lanczos": [], "arnoldi": []}
+
+    def build(kind, op, custom_vjp, log=None):
+        if kind == "lanczos":
+            return lanczos.tridiag(op, BSR_DEPTH, reortho="none", custom_vjp=custom_vjp, dispatch_log=log)
+        # Re-orthogonalised: without it, Arnoldi on this operator loses
+        # orthogonality (1e-2 at K = 12 in float64) and the closed-form
+        # adjoint departs from backprop by 1e10 in both packages.
+        return arnoldi.hessenberg(op, BSR_DEPTH, reortho="full", custom_vjp=custom_vjp, dispatch_log=log)
+
+    routes = {(kind, cv): build(kind, matvec, cv, logs[kind] if cv else None)
+              for kind in ("lanczos", "arnoldi") for cv in (True, False)}
+    # Forward: one K10 a step. Custom Lanczos adjoint: one K10 a step (A lam),
+    # its value gradient a broadcast; custom Arnoldi adjoint: the forward K10
+    # and the cotangent K10 of each step's VJP; backprop: each step's dv.
+    expected = {("lanczos", True): 2 * BSR_DEPTH, ("lanczos", False): 2 * BSR_DEPTH,
+                ("arnoldi", True): 3 * BSR_DEPTH, ("arnoldi", False): 2 * BSR_DEPTH}
+    grads, launches = {}, {}
+    for key, estimate in routes.items():
+        native.reset_launches()
+        grads[key] = _one_vjp(estimate, v0, tiles)
+        torch.cuda.synchronize()
+        launches[key] = _launches(BSR_KERNELS)["bsr_spmv"]
+        finite = all(bool(torch.isfinite(g).all()) for g in grads[key])
+        ok = launches[key] == expected[key] and finite
+        print(f"  {key[0]} {'custom' if key[1] else 'backprop'}: K10 launches per VJP {launches[key]} "
+              f"(predicted {expected[key]}); grads finite {finite} max|dv| "
+              f"{float(grads[key][0].abs().max()):.6e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"{key} launches")
+    print(f"  dispatch log: {logs}")
+    if logs != {"lanczos": ["tridiag:generic"], "arnoldi": ["hessenberg:generic"]}:
+        failures.append("dispatch log")
+
+    # Custom adjoint vs backprop, against the spread of the plain einsum
+    # matvec's float32-vs-float64 VJPs on the same inputs.
+    plain = sparse.bsr_matvec_fn(bsr)
+    symmetrised = _symmetrised_entries(mat, bsr)
+    for kind in ("lanczos", "arnoldi"):
+        spread = {}
+        for cv in (True, False):
+            pair = [_one_vjp(build(kind, plain, cv), v0.to(dtype), tiles.to(dtype))
+                    for dtype in (torch.float32, torch.float64)]
+            spread[cv] = (_rel_err(pair[0][0], pair[1][0]),
+                          _rel_err(symmetrised(pair[0][1]), symmetrised(pair[1][1])))
+            del pair
+        custom, backprop = grads[(kind, True)], grads[(kind, False)]
+        _report_spread(f"adjoint vs backprop dv {kind}", _rel_err(custom[0], backprop[0]),
+                       max(spread[True][0], spread[False][0]), failures)
+        _report_spread(f"adjoint vs backprop symmetrised dtiles {kind}",
+                       _rel_err(symmetrised(custom[1]), symmetrised(backprop[1])),
+                       max(spread[True][1], spread[False][1]), failures)
+    del grads
+    if failures:
+        raise RuntimeError(f"BSR slice failed: {failures}")
+
+    times = {}
+    for key in routes:
+        times[key] = events_ms(lambda k=key: _one_vjp(routes[k], v0, tiles), 5)
+        print(f"  VJP wall time {key[0]} {'custom' if key[1] else 'backprop'}: {times[key]:.3f} ms "
+              f"(CUDA events, mean of 5 after warm-up)", flush=True)
+    profiles = {kind: _print_profile(f"{kind} custom", lambda k=kind: _one_vjp(routes[(k, True)], v0, tiles))
+                for kind in ("lanczos", "arnoldi")}
+
+    # Per-probe SLQ, value and gradient in the tiles, against a float64
+    # dense Cholesky log-determinant.
+    drawn = []
+    rademacher = hutchinson.sampler_rademacher(torch.ones(n, device=DEVICE), num=BSR_PROBES)
+
+    def value_and_grad(sampler):
+        logdet = slq.krylov_logdet_slq(BSR_DEPTH, sample=sampler, num_batches=1, checkpoint=False)
+        p = tiles.clone().requires_grad_()
+        value, _info = logdet(matvec, torch.Generator(device=DEVICE).manual_seed(4), p)
+        (grad,) = torch.autograd.grad(value, [p])
+        return value.detach(), grad
+
+    native.reset_launches()
+    value, grad = value_and_grad(lambda key: drawn.append(rademacher(key)) or drawn[-1])
+    torch.cuda.synchronize()
+    slq_launches = _launches(BSR_KERNELS)["bsr_spmv"]
+    finite = bool(torch.isfinite(grad).all()) and bool(torch.isfinite(value))
+    want = BSR_PROBES * 3 * BSR_DEPTH  # each probe: a re-orthogonalised Arnoldi VJP
+    print(f"  SLQ ({BSR_PROBES} probes, K={BSR_DEPTH}): K10 launches {slq_launches} (predicted {want}); "
+          f"value and gradient finite {finite}", flush=True)
+    if slq_launches != want or not finite:
+        failures.append("SLQ launches")
+    with torch.no_grad():
+        per_probe = torch.stack([lanczos.integrand_spd(torch.log, BSR_DEPTH, matvec)(v, tiles)
+                                 for v in drawn[0]]).double()
+    se = float(per_probe.std()) / BSR_PROBES ** 0.5
+    slq_ms = events_ms(lambda: value_and_grad(lambda _key: drawn[0]), 2)
+    t0 = time.perf_counter()
+    exact = _dense_logdet(mat)
+    chol_s = time.perf_counter() - t0
+    dev = abs(float(value) - exact)
+    print(f"  logdet: SLQ {float(value):.4f}, float64 dense Cholesky {exact:.4f} ({chol_s:.1f} s), |diff| "
+          f"{dev:.4f}, standard error {se:.4f}, |diff| / se {dev / se:.3f} (limit 5); value-and-gradient "
+          f"wall time {slq_ms:.3f} ms (CUDA events, mean of 2)", flush=True)
+    if not dev <= 5 * se:
+        failures.append("SLQ vs Cholesky")
+
+    # The HYB route on the card: PyTorch ops, no kernel of the port.
+    rnd = _random_csr(HYB_N, HYB_PER_ROW)
+    mv_h, values_h, info_h = sparse.sparse_operator(rnd, with_info=True, device=DEVICE)
+    native.reset_launches()
+    inputs = [torch.ones(HYB_N, device=DEVICE).requires_grad_()] + [p.clone().requires_grad_() for p in values_h]
+    outputs = _leaves(lanczos.tridiag(mv_h, BSR_DEPTH, reortho="none")(*inputs))
+    hyb_grads = torch.autograd.grad(outputs, inputs, [torch.ones_like(o) for o in outputs], allow_unused=True)
+    torch.cuda.synchronize()
+    hyb_counts = {k: c for k, c in native.launch_counts().items() if c}
+    hyb_finite = all(g is None or bool(torch.isfinite(g).all()) for g in hyb_grads)
+    hyb_ms = events_ms(lambda: torch.autograd.grad(
+        _leaves(lanczos.tridiag(mv_h, BSR_DEPTH, reortho="none")(*inputs)), inputs,
+        [torch.ones_like(o) for o in outputs], allow_unused=True), 3)
+    print(f"  HYB: random {HYB_N} x {HYB_N}, {HYB_PER_ROW} a row: format={info_h.format} fill="
+          f"{info_h.fill_efficiency:.4f}, heavy rows {values_h[1].shape[0]}; Lanczos K={BSR_DEPTH} VJP grads "
+          f"finite {hyb_finite}, kernel launches {hyb_counts} (none expected), wall {hyb_ms:.3f} ms "
+          f"(mean of 3)", flush=True)
+    if info_h.format != "hyb" or not hyb_finite or hyb_counts:
+        failures.append("hyb")
+    if failures:
+        raise RuntimeError(f"BSR slice failed: {failures}")
+    return {"launches": launches, "vjp_ms": times, "profile": profiles, "slq_launches": slq_launches,
+            "slq_ms": slq_ms, "slq": float(value), "exact": exact, "se": se, "hyb_ms": hyb_ms, "n": n,
+            "nnz": mat.nnz}
+
+
+def phase_timing_bsr(slice_run):
+    """K10's time per launch on the FEM matrix and its RCM permutation beside
+    its bound, its plain version and cuSPARSE; its kernels-line entry."""
+    from lanczos_adjoints_tpu_torch.ops import fused_bsr
+
+    print("[timing-bsr] K10 at the slice's shapes (profiler and CUDA events); library: cuSPARSE CSR",
+          flush=True)
+    rows, failures = {}, []
+    rng = np.random.default_rng(12)
+    for rcm in (False, True):
+        mat, bsr, tiles = _fem(rcm)
+        n = mat.shape[0]
+        # 8 vectors; the tiles (170 / 361 MB) alone are 3.4x / 7x the 50 MB L2,
+        # so every launch streams them from device memory, as on the main path.
+        vs = [_tensor(rng, n) for _ in range(ROTATE_SETS)]
+        csr = torch.sparse_csr_tensor(
+            torch.tensor(mat.indptr, device=DEVICE), torch.tensor(mat.indices, device=DEVICE),
+            torch.tensor(mat.data, dtype=torch.float32, device=DEVICE), size=mat.shape,
+            check_invariants=True,
+        )
+        lib_err = _rel_err(csr @ vs[0], fused_bsr.bsr_spmv_rows(bsr, vs[0], tiles))
+        print(f"  {'rcm' if rcm else 'fem'}: library CSR product vs K10: max rel err {lib_err:.3e}")
+        nbytes = 4 * (bsr.num_slots + bsr.block_cols.numel() + 2 * n)
+        _record(rows, failures, "rcm" if rcm else "fem", "bsr_spmv_kernel",
+                [lambda v=v: fused_bsr.bsr_spmv_rows(bsr, v, tiles) for v in vs],
+                [lambda v=v: fused_bsr.bsr_spmv_plain(bsr, v, tiles) for v in vs],
+                nbytes, 2 * bsr.num_slots, 48, 8, tols=(TOL_BSR,),
+                library=[lambda v=v: csr @ v for v in vs])
+        rows["rcm" if rcm else "fem"].update(n=n, nnz=mat.nnz, width=bsr.width,
+                                             tile_mb=4 * bsr.num_slots / 1e6)
+        del tiles, csr, vs
+    if failures:
+        raise RuntimeError(f"K10 disagrees with its plain version in [timing-bsr]: {failures}")
+    profile = slice_run["profile"]["lanczos"]
+    return {
+        "name": "bsr_spmv", "route": "cuda", "source": "lanczos_adjoints_tpu_torch/csrc/bsr.cu",
+        "replaces": "lanczos_adjoints_tpu/ops/pallas_bsr.py:48",
+        "launches": slice_run["launches"][("lanczos", True)], **rows["fem"],
+        "ms_in_vjp": _per_launch_ms(profile["kernels"], "bsr_spmv_kernel") if profile else None,
+        "launches_per_vjp": {f"{k} {'custom' if cv else 'backprop'}": c
+                             for (k, cv), c in slice_run["launches"].items()},
+        "launches_slq": slice_run["slq_launches"], "by_matrix": rows,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1294,7 +1749,9 @@ def main() -> int:
     phase_parity()
     phase_oracle()
     counts = phase_slice(N_TRAIN, steps=3)
-    entries = phase_timing(N_TRAIN, counts)
+    phase_parity_dgrads()
+    dgrads = phase_slice_dgrads(N_TRAIN)
+    entries = phase_timing(N_TRAIN, counts, dgrads)
     phase_parity_dia()
     phase_parity_lanczos()
     slices = {m: phase_slice_sparse(m) for m in SLICE_GRIDS}
@@ -1304,6 +1761,9 @@ def main() -> int:
     slq_run = phase_slice_slq()
     phase_slice_pde()
     entries.append(phase_timing_arnoldi(arnoldi_runs))
+    phase_parity_bsr()
+    bsr_run = phase_slice_bsr()
+    entries.append(phase_timing_bsr(bsr_run))
     main_arnoldi = arnoldi_runs[ARNOLDI_MAIN]["launches"]["fused"]
     for entry in entries:
         # The DIA kernels' launches in the Arnoldi adjoint (main path) and SLQ.

@@ -14,7 +14,8 @@ log-pdf as ``cov_params``, and the covariance matvec is
 ``cov_matvec(v, raw_lengthscale, raw_outputscale, raw_noise)``. The
 Krylov adjoints and the CG backward pass then differentiate with respect
 to them, which ``jax.closure_convert`` and ``lax.custom_linear_solve``
-arrange in the JAX package.
+arrange in the JAX package. Training inputs that require a gradient
+travel the same way, as one more explicit parameter of ``cov_matvec``.
 """
 
 import math
@@ -169,7 +170,8 @@ class _CovarianceOp:
     broadcastable index tensors -- the access pattern of the partial
     Cholesky -- with the kernel's own parameters; ``matvec(v, *params)``
     applies the Gram matrix through the injected policy with explicit
-    kernel parameters.
+    kernel parameters, and ``matvec_rows(v, *params, inputs)`` with the
+    inputs as one more explicit parameter, for a gradient in them.
     """
 
     def __init__(self, matvec, kernel, inputs, *, noise=0.0):
@@ -190,10 +192,15 @@ class _CovarianceOp:
         elem.params = kernel.params
         self.elem = elem
         self._apply_gram = matvec(elem)
+        self._apply_rows = matvec(kernel)
 
     def matvec(self, v, *params):
         idx = torch.arange(len(self._inputs), device=self._inputs.device)
         return self._apply_gram(idx, idx, v, *params)
+
+    def matvec_rows(self, v, *params_and_inputs):
+        *params, inputs = params_and_inputs
+        return self._apply_rows(inputs, inputs, v, *params)
 
 
 def likelihood_pdf_p(
@@ -203,16 +210,25 @@ def likelihood_pdf_p(
 
     The preconditioner sees the noiseless lazy kernel (it adds the noise
     itself through the Woodbury identity) and is built without gradients;
-    the log-pdf's matvec carries ``+ noise * v``.
+    the log-pdf's matvec carries ``+ noise * v``. Inputs that require a
+    gradient become the last of ``cov_params``, and the matvec reads its
+    rows from there (``_CovarianceOp.matvec_rows``); the preconditioner
+    still reads them without gradients, as ``custom_linear_solve`` never
+    differentiates it in the JAX package.
     """
 
     def likelihood(inputs, mean: Callable, kernel: Callable, params: dict):
         raw_noise = params["raw_noise"]
         cov = _CovarianceOp(matvec, kernel, inputs)
         pre, info_pre = precondition(cov.elem, len(inputs))
+        explicit_rows = (inputs,) if inputs.requires_grad else ()
 
-        def cov_matvec(v, raw_lengthscale, raw_outputscale, raw_noise):
-            return cov.matvec(v, raw_lengthscale, raw_outputscale) + constrain(raw_noise) * v
+        def cov_matvec(v, raw_lengthscale, raw_outputscale, raw_noise, *rows):
+            if rows:
+                gram = cov.matvec_rows(v, raw_lengthscale, raw_outputscale, *rows)
+            else:
+                gram = cov.matvec(v, raw_lengthscale, raw_outputscale)
+            return gram + constrain(raw_noise) * v
 
         def logpdf_partial(targets, *p_logpdf):
             mu = mean(inputs)
@@ -222,7 +238,7 @@ def likelihood_pdf_p(
                 *p_logpdf,
                 mean=mu,
                 cov_matvec=cov_matvec,
-                cov_params=(*kernel.params, raw_noise),
+                cov_params=(*kernel.params, raw_noise, *explicit_rows),
                 P=lambda v: pre(v, noise),
             )
             return value, {"precondition": info_pre, "logpdf": info}
@@ -291,7 +307,7 @@ def logpdf_krylov_p(solve_p: Callable, logdet: Callable) -> Callable:
 # ---------------------------------------------------------------------------
 
 
-def params_from_jax(p_mean: dict, p_kernel: dict, p_likelihood: dict, *, device="cpu"):
+def params_from_jax(p_mean: dict, p_kernel: dict, p_likelihood: dict, *, device="cuda"):
     """The JAX package's parameter dicts (numpy arrays) as the port's (float32 tensors)."""
 
     def convert(tree):

@@ -7,9 +7,12 @@ parametrisation, ``models.gp``):
 - K1 (``csrc/gram_matvec.cu``) computes ``K(x, y) @ v`` without forming
   the N x M matrix, for ``v`` of shape ``(M,)`` or ``(M, m)``;
 - K2 (``csrc/gram_grads.cu``) computes the lengthscale and outputscale
-  gradients of ``sum_k u_k^T K(x, y) v_k`` in one more streamed pass.
+  gradients of ``sum_k u_k^T K(x, y) v_k`` in one more streamed pass;
+- K3 (``csrc/gram_dgrads.cu``) computes the per-row moments of the
+  gradient of the same sum with respect to ``x`` (and, with the roles
+  swapped, ``y``) in one more streamed pass.
 
-Both take rows scaled by ``sqrt(pscale) / lengthscale`` (``PSCALE`` folds
+All take rows scaled by ``sqrt(pscale) / lengthscale`` (``PSCALE`` folds
 the family's distance factor into the data) and zero-padded to a width
 in ``WIDTHS``; ``outputscale`` multiplies the O(N) output. A wrapper
 launches its kernel for CUDA tensors and runs the plain PyTorch version
@@ -18,8 +21,9 @@ of the same arithmetic for CPU tensors; there is no other path.
 ``gram_matvec_fused(kind)`` wraps both in a ``torch.autograd.Function``:
 the forward pass runs K1, the backward pass runs K1 on the transposed
 operator for ``dv`` (only when ``v`` needs a gradient) and K2 for the
-lengthscale and outputscale. ``x`` and ``y`` get no gradient, as with the
-JAX package's default ``data_grads=False``.
+lengthscale and outputscale. ``x`` and ``y`` get no gradient unless
+``data_grads=True``, as in the JAX package; then K3 runs once for each of
+them that needs one.
 """
 
 import contextlib
@@ -41,6 +45,7 @@ _VALUES_UNUSED = contextvars.ContextVar("fused_gram_values_unused", default=Fals
 
 GRAM_MATVEC = native.Kernel("gram_matvec", "gram_matvec", "lat_gram_matvec")
 GRAM_GRADS = native.Kernel("gram_grads", "gram_grads", "lat_gram_grads")
+GRAM_DGRADS = native.Kernel("gram_dgrads", "gram_dgrads", "lat_gram_dgrads")
 _GRADS_BLOCK_ROWS = 64  # rows per K2 block: kBR in csrc/gram_grads.cu
 
 
@@ -158,6 +163,22 @@ def gram_grads_plain(kind, xs, ys, v2, u2):
     return total
 
 
+def gram_dgrads_plain(kind, xs, ys, v2, u2):
+    """Plain K3: the (n, 1 + D) moments ``[S_i, T_i]`` per row of ``xs``.
+
+    ``S_i = sum_j w_ij`` and ``T_id = sum_j w_ij ys_jd`` (scaled
+    coordinates), with ``w_ij = (u_i . v_j) * dg/dsq``.
+    """
+    starts, step = _chunks(xs.shape[0], ys.shape[0])
+    moments = []
+    for i in starts:
+        xc = xs[i : i + step]
+        _, dg = kernel_value_dsq(kind, _scaled_sq(xc, ys))
+        w = (u2[i : i + step] @ v2.T) * dg
+        moments.append(torch.cat([torch.sum(w, dim=1, keepdim=True), w @ ys], dim=1))
+    return torch.cat(moments)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: the kernel for CUDA tensors, the plain version for CPU tensors
 # ---------------------------------------------------------------------------
@@ -230,6 +251,55 @@ def param_grads(kind, x, y, v2, u2, lengthscale, outputscale):
     return d_ell, d_out
 
 
+def gram_dgrads_rows(kind, xs, ys, v2, u2):
+    """K3 on prepared rows -> the (n, 1 + D) moments (see ``gram_dgrads_plain``).
+
+    Every row's moments are summed in one fixed order on the card, so the
+    result does not change from run to run.
+    """
+    device = _check(kind, xs, ys, v2, u2)
+    n, width = xs.shape
+    n_cols, m = v2.shape
+    if ys.shape != (n_cols, width) or u2.shape != (n, m) or width not in WIDTHS:
+        msg = (
+            f"shape mismatch: xs {tuple(xs.shape)}, ys {tuple(ys.shape)}, "
+            f"v {tuple(v2.shape)}, u {tuple(u2.shape)}"
+        )
+        raise ValueError(msg)
+    if device.type == "cpu":
+        return gram_dgrads_plain(kind, xs, ys, v2, u2)
+    moments = torch.empty((n, 1 + width), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        GRAM_DGRADS.launch(
+            _KIND_ID[kind], xs.data_ptr(), ys.data_ptr(), v2.data_ptr(),
+            u2.data_ptr(), moments.data_ptr(), n, n_cols, m, width,
+            native.stream(device),
+        )
+    return moments
+
+
+def data_grad(kind, x, y, v2, u2, lengthscale, outputscale):
+    """d/dx of ``sum_k u_k^T K(x, y) v_k``, shape of ``x``.
+
+    ``dx_id = outputscale * 2 / ell_d^2 * (x_id S_i - T_id / scale_d)``
+    from K3's moments; ``T`` is in the scaled coordinates of
+    ``kernel_rows``, so its first ``d`` columns are unscaled by
+    ``scale = sqrt(pscale) / ell``. ``d/dy`` is ``data_grad(kind, y, x,
+    u2, v2, ...)``.
+    """
+    moments = gram_dgrads_rows(
+        kind,
+        kernel_rows(x, lengthscale, kind),
+        kernel_rows(y, lengthscale, kind),
+        v2.contiguous(),
+        u2.contiguous(),
+    )
+    d = x.shape[-1]
+    row_sum, t = moments[:, :1], moments[:, 1 : 1 + d]
+    scale = math.sqrt(PSCALE[kind]) / lengthscale
+    return outputscale * (2.0 / lengthscale**2) * (x * row_sum - t / scale)
+
+
 @contextlib.contextmanager
 def values_unused():
     """Inside, the fused matvec's forward pass skips K1 and returns NaNs.
@@ -250,8 +320,9 @@ def values_unused():
 
 class _FusedGram(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, kind, x, y, v, lengthscale, outputscale):
+    def forward(ctx, kind, data_grads, x, y, v, lengthscale, outputscale):
         ctx.kind = kind
+        ctx.data_grads = data_grads
         ctx.save_for_backward(x, y, v, lengthscale, outputscale)
         if _VALUES_UNUSED.get():
             return torch.full((x.shape[0], *v.shape[1:]), math.nan, dtype=v.dtype, device=v.device)
@@ -270,8 +341,9 @@ class _FusedGram(torch.autograd.Function):
         kind = ctx.kind
         u2 = u[:, None] if u.ndim == 1 else u
         v2 = v[:, None] if v.ndim == 1 else v
-        dv = d_ell = d_out = None
-        if ctx.needs_input_grad[3]:  # K^T u, the transposed operator
+        needs = ctx.needs_input_grad
+        dx = dy = dv = d_ell = d_out = None
+        if needs[4]:  # K^T u, the transposed operator
             dv = outputscale * gram_matvec_rows(
                 kind,
                 kernel_rows(y, lengthscale, kind),
@@ -279,24 +351,30 @@ class _FusedGram(torch.autograd.Function):
                 u2.contiguous(),
             )
             dv = dv[:, 0] if v.ndim == 1 else dv
-        if ctx.needs_input_grad[4] or ctx.needs_input_grad[5]:
+        if needs[5] or needs[6]:
             d_ell, d_out = param_grads(kind, x, y, v2, u2, lengthscale, outputscale)
-        return None, None, None, dv, d_ell, d_out
+        if ctx.data_grads and needs[2]:
+            dx = data_grad(kind, x, y, v2, u2, lengthscale, outputscale)
+        if ctx.data_grads and needs[3]:  # rows and columns, v and u swapped
+            dy = data_grad(kind, y, x, u2, v2, lengthscale, outputscale)
+        return None, None, dx, dy, dv, d_ell, d_out
 
 
-def gram_matvec_fused(kind: str):
+def gram_matvec_fused(kind: str, *, data_grads: bool = False):
     """Return ``matvec(x, y, v, lengthscale, outputscale) -> outputscale * K(x, y) @ v``.
 
     ``v`` is ``(M,)`` or ``(M, m)``; ``lengthscale`` a scalar tensor or a
     ``(d,)`` ARD vector; ``outputscale`` a scalar tensor; all float32.
     Differentiable with respect to ``v``, ``lengthscale`` and
-    ``outputscale``; ``x`` and ``y`` get no gradient.
+    ``outputscale``; ``x`` and ``y`` get no gradient unless
+    ``data_grads=True`` (deep-kernel and inducing-point training), which
+    runs K3 in the backward pass for each of them that needs one.
     """
     if kind not in _KIND_ID:
         msg = f"kind={kind!r} not supported"
         raise ValueError(msg)
 
     def matvec(x, y, v, lengthscale, outputscale):
-        return _FusedGram.apply(kind, x, y, v, lengthscale, outputscale)
+        return _FusedGram.apply(kind, data_grads, x, y, v, lengthscale, outputscale)
 
     return matvec

@@ -38,7 +38,7 @@ def gram_matvec() -> Callable:
     return matvec
 
 
-def gram_matvec_fused() -> Callable:
+def gram_matvec_fused(*, data_grads: bool = False) -> Callable:
     """Fused streaming policy: the CUDA kernels of ``ops.fused_gram``.
 
     Needs a kernel built by the ``models.gp.kernel_scaled_*`` factories,
@@ -48,6 +48,10 @@ def gram_matvec_fused() -> Callable:
     matvec. For the index-based kernel of ``models.gp._CovarianceOp``
     (tagged ``fused_data = (inputs, noise)``) the indices resolve to rows
     and a non-zero noise adds ``noise * v`` on the square matvec.
+    ``data_grads=True`` gives the feature rows a gradient (K3); the rows
+    must then be explicit arguments, as ``models.gp._CovarianceOp.matvec_rows``
+    passes them, since an autograd Function gives no gradient to the
+    captured ``fused_data``.
     """
 
     def matvec(fun: Callable) -> Callable:
@@ -59,7 +63,7 @@ def gram_matvec_fused() -> Callable:
             )
             raise ValueError(msg)
         kind, constrain = spec
-        fused = fused_gram.gram_matvec_fused(kind)
+        fused = fused_gram.gram_matvec_fused(kind, data_grads=data_grads)
         indexed = getattr(fun, "fused_data", None)
 
         def matvec_y(i, j, v, raw_lengthscale, raw_outputscale):

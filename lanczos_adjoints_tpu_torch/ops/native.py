@@ -24,7 +24,7 @@ import torch
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
-SOURCES = ("gram_matvec", "gram_grads", "dia", "lanczos_dia", "arnoldi_dia")
+SOURCES = ("gram_matvec", "gram_grads", "gram_dgrads", "dia", "lanczos_dia", "arnoldi_dia", "bsr")
 FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -44,6 +44,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "gram_matvec": {"lat_gram_matvec": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P)},
     "gram_grads": {"lat_gram_grads": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)},
+    "gram_dgrads": {"lat_gram_dgrads": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)},
     "dia": {
         "lat_dia_matvec": (_P, _P, _P, _I, _I, _P, _P),
         "lat_dia_dvals": (_P, _P, _P, _I, _I, _P, _P),
@@ -60,6 +61,7 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P,
         ),
     },
+    "bsr": {"lat_bsr_spmv": (_P, _P, _P, _P, _I, _I, _I, _I, _P)},
 }
 
 _loaded = {}

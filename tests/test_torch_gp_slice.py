@@ -186,7 +186,7 @@ def test_params_from_jax_round_trip_and_flat_order():
     flat_j, unflatten_j = ravel_pytree((p_mean, p_kernel, p_lik))
     trees_j = jax.tree_util.tree_map(np.asarray, unflatten_j(jnp.asarray(params)))
 
-    trees_t = gp.params_from_jax(*trees_j)
+    trees_t = gp.params_from_jax(*trees_j, device="cpu")
     flat_t = gp.flatten_params(*trees_t)
     np.testing.assert_array_equal(flat_t.numpy(), params)
     assert flat_t.shape == flat_j.shape

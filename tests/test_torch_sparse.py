@@ -210,15 +210,30 @@ def test_sparse_operator_stays_on_the_roll_form_off_the_card():
 
 @pytest.mark.parametrize("fmt", ["bsr", "ell", "hyb"])
 def test_sparse_operator_refuses_the_formats_not_ported(fmt):
+    """Every layout is ported now: an explicit ``format`` builds the JAX
+    package's operator (same info, same product), and only the layouts
+    with a kernel on the card (BSR, like DIA) refuse a dtype it does not
+    take there."""
     mat = test_util.laplacian_2d(4)
-    with pytest.raises(NotImplementedError, match="A9"):
-        sparse.sparse_operator(mat, format=fmt, device="cpu")
+    mv_t, vals_t, info_t = sparse.sparse_operator(mat, format=fmt, with_info=True, device="cpu")
+    mv_j, vals_j, info_j = jsparse.sparse_operator(jax_laplacian_2d(4), format=fmt, with_info=True)
+    assert info_t == info_j
+    v = np.random.default_rng(6).normal(size=16).astype(np.float32)
+    vals_t = vals_t if isinstance(vals_t, tuple) else (vals_t,)
+    np.testing.assert_allclose(
+        mv_t(torch.tensor(v), *vals_t).numpy(), np.asarray(mv_j(jnp.asarray(v), vals_j)), atol=1e-5
+    )
+    sparse.sparse_operator(mat, format=fmt, dtype=torch.float64, device="cpu")  # off the card: any dtype
 
 
 def test_sparse_operator_auto_beyond_dia_raises_and_bad_format_is_a_value_error():
+    """Beyond DIA, ``"auto"`` picks BSR or HYB as the JAX package does (it
+    raised while they were not ported); an unknown format is the JAX
+    package's ValueError."""
     mat = test_util.laplacian_2d(4)
-    with pytest.raises(NotImplementedError, match="A9"):
-        sparse.sparse_operator(mat, dia_max_diags=3, device="cpu")
+    _mv, _vals, info_t = sparse.sparse_operator(mat, dia_max_diags=3, with_info=True, device="cpu")
+    _mv, _vals, info_j = jsparse.sparse_operator(mat, dia_max_diags=3, with_info=True)
+    assert info_t == info_j and info_t.format in ("bsr", "hyb")
     with pytest.raises(ValueError, match="not in") as got:
         sparse.sparse_operator(mat, format="csr", device="cpu")
     with pytest.raises(ValueError, match="not in") as want:
