@@ -73,8 +73,26 @@ Phases, in order:
      adjoint and backprop, per-probe SLQ against a float64 dense
      Cholesky log-determinant, and one Lanczos VJP over a HYB operator;
  19. K10's time per launch beside its bound, plain version and
-     cuSPARSE. The kernels of every slice, with their numbers, form one
-     JSON line.
+     cuSPARSE;
+ 20. halo parity: K11 (``csrc/halo_dia.cu``) on P in {1, 2, 8}
+     partitions, one allocation each, NaN-poisoned receive buffers, two
+     successive calls, against its plain version and K4 on the whole
+     vector, offsets (-1, 0, 1), (-130, -7, 0, 7, 130) and
+     (-1024, -1, 0, 1, 1024) with random values in every slot, n in
+     {16,384, 1,000,000, 1,048,576}; the Function's dv (K11 on the
+     transpose) against K4^T and dvals against K5 (bit for bit);
+ 21. the halo slice: the multi-device scaling benchmark's 5-diagonal
+     operator at n = 2^20 -> ``parallel.sharded_dia_operator`` ->
+     ``tridiag(K = 30)``, one VJP with the all-ones cotangent at P in
+     {1, 2, 4, 8}: 60 K11 launches per VJP and no other DIA kernel, the
+     dispatch log, agreement with the unsharded K6/K7 route, VJP wall
+     times, a profiled VJP at P = 8;
+ 22. the mesh slice: ``train.gp.dryrun_multichip(8)`` with the fused
+     kernels, then one ``adj400k`` step over an 8-partition rows mesh
+     against the unsharded step (loss 1e-4, gradient 1e-3), launches 8x;
+ 23. K11's time per launch at n = 2^20, P = 8 and 1, beside its bound,
+     its plain version, K4 on the whole vector and cuSPARSE. The kernels
+     of every slice, with their numbers, form one JSON line.
 The last two lines are the card (``name, power.limit``) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1736,6 +1754,252 @@ def phase_timing_bsr(slice_run):
     }
 
 
+# ---------------------------------------------------------------------------
+# The multi-device layer on one card: the halo-exchange DIA kernel (K11), the
+# row-partitioned Lanczos VJP, the sharded GP step
+# ---------------------------------------------------------------------------
+
+# [parity-halo] shapes: n = 1,000,000 is not a multiple of P x 1024 (the
+# JAX kernel's tiling); at n = 16,384, P = 8 and halo 1024 every row of a
+# partition is an edge row.
+HALO_SIZES = (16_384, 1_000_000, 1 << 20)
+HALO_OFFSETS = ((-1, 0, 1), (-130, -7, 0, 7, 130), (-1024, -1, 0, 1, 1024))
+HALO_PARTITIONS = (1, 2, 8)
+# [slice-halo]: multihost_scaling's measured path at its defaults.
+HALO_N, HALO_BANDWIDTH, HALO_DEPTH, HALO_MESHES = 1 << 20, 1024, 30, (1, 2, 4, 8)
+HALO_KERNELS = ("halo_dia_matvec", "halo_dia_matvec_transposed", *DIA_KERNELS)
+
+
+def phase_parity_halo():
+    """K11 against its plain version and K4 on the global vector, on one
+    allocation per partition with NaN-poisoned receive buffers, over two
+    successive calls; its Function's dv (K11 on the transpose) and dvals
+    (against K5, bit for bit)."""
+    from lanczos_adjoints_tpu_torch import parallel
+    from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
+    from lanczos_adjoints_tpu_torch.parallel import fused_halo as fh
+
+    print("[parity-halo] K11 vs its plain version and K4, P partitions on one card", flush=True)
+    failures = []
+    rng = np.random.default_rng(13)
+    for n in HALO_SIZES:
+        for offsets in HALO_OFFSETS:
+            vals = _tensor(rng, (len(offsets), n))  # every slot, the wrapped ones too
+            for parts in HALO_PARTITIONS:
+                tag = f"n={n} offsets={offsets} P={parts}"
+                local_n = n // parts
+                exchange = fh.HaloExchange(parts, fh.halo_width(offsets))
+                recv = exchange.buffers(DEVICE)[0]
+                poisoned = all(bool(torch.isnan(r).all()) for r in recv)
+                own = {"memory_format": torch.contiguous_format}  # a new allocation each
+                vals_parts = [vals[:, p * local_n:(p + 1) * local_n].clone(**own) for p in range(parts)]
+                for call in (1, 2):
+                    v = _tensor(rng, n)
+                    v_parts = [v[p * local_n:(p + 1) * local_n].clone(**own) for p in range(parts)]
+                    got = torch.cat(fh.halo_dia_parts(offsets, v_parts, vals_parts, exchange))
+                    plain = fh.halo_dia_plain(offsets, v, vals, parts)
+                    k4 = fd.dia_matvec_rows(offsets, v, vals)
+                    torch.cuda.synchronize()
+                    finite = bool(torch.isfinite(got).all())
+                    if not (finite and poisoned):
+                        failures.append(f"{tag} call {call} finite={finite} poisoned={poisoned}")
+                    _report(f"K11 {tag} call {call} vs plain", _rel_err(got, plain), TOL_DIA, failures)
+                    _report(f"K11 {tag} call {call} vs K4", _rel_err(got, k4), TOL_DIA, failures)
+                # The operator's Function: dv by K11 on the transpose, dvals
+                # by the shift products, against K4^T and K5 on the whole vector.
+                op = parallel.sharded_dia_operator(_dia(offsets, n), parallel.device_mesh(parts))
+                x, u = _tensor(rng, n), _tensor(rng, n)
+                args = [x.clone().requires_grad_(), vals.clone().requires_grad_()]
+                dv, dvals = torch.autograd.grad(op(*args), args, u)
+                ref = [x.clone().requires_grad_(), vals.clone().requires_grad_()]
+                dv_k4, _ = torch.autograd.grad(fd.dia_matvec_fused(_dia(offsets, n), check_tiling=False)(*ref),
+                                               ref, u)
+                dvals_k5 = fd.dia_dvals_rows(offsets, x, u)
+                torch.cuda.synchronize()
+                _report(f"K11^T vjp dv {tag} vs K4^T", _rel_err(dv, dv_k4), TOL_DIA, failures)
+                _report(f"vjp dvals {tag} vs K5", _rel_err(dvals, dvals_k5), TOL_DVALS, failures)
+        del vals
+    if failures:
+        msg = f"{len(failures)} halo parity checks failed: {failures[:5]}"
+        raise RuntimeError(msg)
+
+
+def phase_slice_halo():
+    """multihost_scaling's measured path through the port's entry points: the
+    5-diagonal operator -> ``parallel.sharded_dia_operator`` ->
+    ``krylov.tridiag(K=30)``, one VJP with the all-ones cotangent per mesh,
+    held to the unsharded fused route (K6/K7 on ``sparse_operator``)."""
+    from lanczos_adjoints_tpu_torch import parallel
+    from lanczos_adjoints_tpu_torch.krylov import lanczos
+    from lanczos_adjoints_tpu_torch.ops import fused_lanczos as fl
+    from lanczos_adjoints_tpu_torch.ops import native, sparse
+    from lanczos_adjoints_tpu_torch.utils import test_util
+    from lanczos_adjoints_tpu_torch.utils.timing import events_ms
+
+    n, depth = HALO_N, HALO_DEPTH
+    mat = test_util.five_diagonal(n, HALO_BANDWIDTH)
+    dia = sparse.dia_pack(mat)
+    vals = sparse.dia_values(dia, mat.data, device=DEVICE)
+    v0 = torch.ones(n, device=DEVICE)
+    print(f"[slice-halo] 5-diagonal operator n={n} nnz={mat.nnz} offsets={dia.offsets} K={depth}, "
+          f"meshes of {HALO_MESHES} partitions on one card, one VJP with the all-ones cotangent",
+          flush=True)
+    matvec_u, _vals_u = sparse.sparse_operator(mat, format="dia", device=DEVICE)
+    log_u = []
+    unsharded = lanczos.tridiag(matvec_u, depth, reortho="none", dispatch_log=log_u)
+    want_grads = _one_vjp(unsharded, v0, vals)
+    spreads = []
+    for dtype in (torch.float32, torch.float64):
+        xs, alphas, betas = fl.lanczos_forward_plain(dia.offsets, vals.to(dtype), v0.to(dtype), depth)
+        spreads.append(fl.lanczos_adjoint_plain(
+            dia.offsets, vals.to(dtype), xs, alphas, betas, 1.0 / torch.linalg.vector_norm(v0.to(dtype)),
+            torch.ones_like(xs), torch.ones_like(alphas), torch.ones_like(betas)))
+    failures = [] if log_u == ["tridiag:dia_fused"] else [f"unsharded dispatch {log_u}"]
+    want = {k: 0 for k in HALO_KERNELS}
+    want["halo_dia_matvec"] = 2 * depth
+    launches, times, routes = {}, {}, {}
+    for parts in HALO_MESHES:
+        log = []
+        matvec = parallel.sharded_dia_operator(dia, parallel.device_mesh(parts, device=DEVICE))
+        routes[parts] = lanczos.tridiag(matvec, depth, reortho="none", dispatch_log=log)
+        native.reset_launches()
+        grads = _one_vjp(routes[parts], v0, vals)
+        torch.cuda.synchronize()
+        launches[parts] = _launches(HALO_KERNELS)
+        ok = launches[parts] == want and log == ["tridiag:generic"] and not hasattr(matvec, "dia_data")
+        print(f"  P={parts}: launches per VJP {launches[parts]} (predicted {want}); dispatch log {log} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"P={parts} launches/dispatch")
+        for label, i in (("dv", 0), ("dvals", 1)):
+            _report_spread(f"P={parts} sharded vs unsharded fused {label}", _rel_err(grads[i], want_grads[i]),
+                           _rel_err(spreads[0][i], spreads[1][i]), failures)
+    if failures:
+        raise RuntimeError(f"halo slice failed: {failures}")
+    times["unsharded fused"] = events_ms(lambda: _one_vjp(unsharded, v0, vals), 5)
+    for parts in HALO_MESHES:
+        times[parts] = events_ms(lambda p=parts: _one_vjp(routes[p], v0, vals), 5)
+    for key, ms in times.items():
+        label = f"P={key}" if isinstance(key, int) else key
+        print(f"  VJP wall time {label}: {ms:.3f} ms (CUDA events, mean of 5 after warm-up)", flush=True)
+    profile = _print_profile(f"P={HALO_MESHES[-1]}", lambda: _one_vjp(routes[HALO_MESHES[-1]], v0, vals))
+    return {"launches": launches, "vjp_ms": {str(k): v for k, v in times.items()}, "profile": profile,
+            "n": n, "nnz": mat.nnz}
+
+
+def _gp_value_and_grad(stack, params, X, y):
+    """The training loss and its gradient at ``params``, probes drawn from seed 1."""
+    p = params.clone().requires_grad_()
+    value, info = stack.mll_lanczos(p, torch.Generator(device=DEVICE).manual_seed(1), X, y)
+    (grad,) = torch.autograd.grad(value, [p])
+    return value, grad, info
+
+
+def phase_slice_mesh(n_train):
+    """``train.gp.dryrun_multichip(8)`` with the fused policy, then one
+    ``adj400k`` step over an 8-partition rows mesh against the unsharded
+    step at the same parameters and probes."""
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.train import gp as train_gp
+
+    print("[slice-mesh] dryrun_multichip(8): the 4x2 per-probe and 8 blocked GP steps vs unsharded",
+          flush=True)
+    gram = ("gram_matvec", "gram_grads")
+    native.reset_launches()
+    start = time.perf_counter()
+    reports = train_gp.dryrun_multichip(8, device=DEVICE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = _launches(gram)
+    for r in reports:
+        print(f"  {r['mesh']} {r['slq']} n={r['n']}: loss {r['loss']:.7f} vs unsharded "
+              f"{r['loss_unsharded']:.7f}; loss error {r['loss_err_of_limit']:.3e} and gradient error "
+              f"{r['grad_err_of_limit']:.3e} of their limits (rtol 1e-5, 1e-4 scaled); Adam step finite",
+              flush=True)
+    print(f"  dry run {seconds:.1f} s, launches K1 {counts['gram_matvec']} K2 {counts['gram_grads']}")
+    if min(counts.values()) == 0:
+        raise RuntimeError(f"the dry run launched no Gram kernel: {counts}")
+
+    X, y = _data(n_train)
+    print(f"  adj400k over an 8-partition rows mesh: N_train={n_train}, d=8, blocked SLQ 15 x 15, "
+          f"PCG atol 1.0, rank 448; against the unsharded step", flush=True)
+    params = torch.randn(11, generator=torch.Generator().manual_seed(1)).to(DEVICE)
+    results, stacks = {}, {}
+    for mesh in ("1", "8"):
+        stacks[mesh] = stack = train_gp.assemble(n_train=n_train, ndim=8, mesh=mesh, device=DEVICE)
+        native.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value, grad, info = _gp_value_and_grad(stack, params, X, y)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        results[mesh] = (value.item(), grad, step_s, _launches(gram),
+                         float(info["logpdf"]["solve"]["num_steps"]))
+        print(f"  mesh {mesh}: loss {value.item():.7f}, CG steps {results[mesh][4]:.0f}, step {step_s:.3f} s, "
+              f"launches K1 {results[mesh][3]['gram_matvec']} K2 {results[mesh][3]['gram_grads']}", flush=True)
+    # The same sharded step once more under the profiler: device time by kernel.
+    profile = _print_profile("adj400k mesh 8", lambda: _gp_value_and_grad(stacks["8"], params, X, y))
+    value_1, grad_1, _s, counts_1, _cg = results["1"]
+    value_8, grad_8, step_8, counts_8, _cg = results["8"]
+    loss_rel = abs(value_8 - value_1) / abs(value_1)
+    grad_err = float((grad_8 - grad_1).abs().max()) / float(grad_1.abs().max())
+    eightfold = all(counts_8[k] == 8 * counts_1[k] for k in gram)
+    print(f"  sharded vs unsharded: loss rel diff {loss_rel:.3e} (tol 1e-04), gradient {grad_err:.3e} of its "
+          f"largest entry (tol 1e-03); launches 8x the unsharded step's: {eightfold}", flush=True)
+    if not (loss_rel <= 1e-4 and grad_err <= 1e-3 and min(counts_8.values()) > 0
+            and all(c % 8 == 0 for c in counts_8.values())):
+        raise RuntimeError("the sharded adj400k step failed its gates")
+    return {"dryrun": reports, "dryrun_launches": counts, "step_s": step_8, "launches": counts_8,
+            "profile": profile, "unsharded": {"step_s": results["1"][2], "launches": counts_1}}
+
+
+def phase_timing_halo(slice_run):
+    """K11's time per launch at n = 2^20, D = 5, P = 8 and 1, beside its
+    bound, its plain version, K4 on the global vector and cuSPARSE; its
+    kernels-line entry."""
+    from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
+    from lanczos_adjoints_tpu_torch.ops import sparse
+    from lanczos_adjoints_tpu_torch.parallel import fused_halo as fh
+    from lanczos_adjoints_tpu_torch.utils import test_util
+
+    print("[timing-halo] K11 at the slice's shape (profiler and CUDA events); yardsticks K4 and cuSPARSE",
+          flush=True)
+    rows, failures = {}, []
+    rng = np.random.default_rng(14)
+    n = HALO_N
+    mat = test_util.five_diagonal(n, HALO_BANDWIDTH)
+    dia = sparse.dia_pack(mat)
+    vals = sparse.dia_values(dia, mat.data, device=DEVICE)
+    offsets, num_diags = dia.offsets, len(dia.offsets)
+    sets = [(_tensor(rng, n), vals.clone()) for _ in range(ROTATE_SETS)]
+    csr = torch.sparse_csr_tensor(
+        torch.tensor(mat.indptr, device=DEVICE), torch.tensor(mat.indices, device=DEVICE),
+        torch.tensor(mat.data, dtype=torch.float32, device=DEVICE), size=mat.shape, check_invariants=True,
+    )
+    nbytes, ops = 4 * (num_diags + 2) * n, 2 * num_diags * n
+    for parts in (8, 1):
+        exchange = fh.HaloExchange(parts, fh.halo_width(offsets))
+        _record(rows, failures, parts, "halo_dia_kernel",
+                [lambda s=s, ex=exchange: fh.halo_dia_rows(offsets, s[0], s[1], ex) for s in sets],
+                [lambda s=s, p=parts: fh.halo_dia_plain(offsets, s[0], s[1], p) for s in sets],
+                nbytes, ops, 48, 8, tols=(TOL_DIA,), library=[lambda s=s: csr @ s[0] for s in sets])
+    _record(rows, failures, "K4", "dia_matvec_kernel",
+            [lambda s=s: fd.dia_matvec_rows(offsets, s[0], s[1]) for s in sets],
+            [lambda s=s: fd.dia_matvec_plain(offsets, s[0], s[1]) for s in sets],
+            nbytes, ops, 48, 8, tols=(TOL_DIA,))
+    if failures:
+        raise RuntimeError(f"K11 disagrees with its plain version in [timing-halo]: {failures}")
+    profile = slice_run["profile"]
+    return {
+        "name": "halo_dia_matvec", "route": "cuda", "source": "lanczos_adjoints_tpu_torch/csrc/halo_dia.cu",
+        "replaces": "lanczos_adjoints_tpu/parallel/pallas_halo.py:54",
+        "launches": slice_run["launches"][HALO_MESHES[-1]]["halo_dia_matvec"], **rows[8], "n": n,
+        "partitions": 8, "by_partitions": {"8": rows[8], "1": rows[1]}, "k4_global": rows["K4"],
+        "ms_in_vjp": _per_launch_ms(profile["kernels"], "halo_dia_kernel") if profile else None,
+        "launches_per_vjp": {f"P={p}": c["halo_dia_matvec"] for p, c in slice_run["launches"].items()},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1764,6 +2028,10 @@ def main() -> int:
     phase_parity_bsr()
     bsr_run = phase_slice_bsr()
     entries.append(phase_timing_bsr(bsr_run))
+    phase_parity_halo()
+    halo_run = phase_slice_halo()
+    phase_slice_mesh(N_TRAIN)
+    entries.append(phase_timing_halo(halo_run))
     main_arnoldi = arnoldi_runs[ARNOLDI_MAIN]["launches"]["fused"]
     for entry in entries:
         # The DIA kernels' launches in the Arnoldi adjoint (main path) and SLQ.

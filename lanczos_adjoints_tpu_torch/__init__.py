@@ -14,10 +14,14 @@ Lanczos forward + adjoint VJP on a DIA operator:
 - ``krylov``:  single-vector and blocked Lanczos with their closed-form
                adjoints, and the dispatch of DIA operators to K6/K7.
 - ``solvers``: adaptive (P)CG with an implicit-differentiation backward pass.
-- ``precond``: blocked pivoted partial Cholesky and the Woodbury solve.
+- ``precond``: pivoted partial Cholesky (sequential, blocked) and the
+               Woodbury solve.
 - ``trace``:   Rademacher probes and the blocked SLQ log-determinant.
 - ``models``:  GP kernels, likelihood and log-pdf backends.
-- ``train``:   the GP training step (Adam with non-finite steps skipped).
+- ``parallel``: operators row-partitioned over a mesh of partitions on
+               one card, with the halo-exchange DIA matvec (K11).
+- ``train``:   the GP training step (Adam with non-finite steps skipped),
+               also over a mesh.
 - ``utils``:   float32 pinning, the synthetic dataset, the in-repo
                Laplacian and timing on the card.
 """

@@ -24,7 +24,10 @@ import torch
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
-SOURCES = ("gram_matvec", "gram_grads", "gram_dgrads", "dia", "lanczos_dia", "arnoldi_dia", "bsr")
+SOURCES = (
+    "gram_matvec", "gram_grads", "gram_dgrads", "dia", "lanczos_dia", "arnoldi_dia", "bsr",
+    "halo_dia",
+)
 FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -37,6 +40,7 @@ FLAGS = (
 )
 
 MAX_DIAGS = 64  # kMaxDiags in csrc/dia_common.cuh
+MAX_PARTITIONS = 64  # kMaxParts in csrc/halo_dia.cu
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,6 +66,11 @@ _SIGNATURES = {
         ),
     },
     "bsr": {"lat_bsr_spmv": (_P, _P, _P, _P, _I, _I, _I, _I, _P)},
+    "halo_dia": {
+        "lat_halo_dia_matvec": (
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, ctypes.c_uint, _P,
+        ),
+    },
 }
 
 _loaded = {}

@@ -1,7 +1,7 @@
-"""Blocked pivoted partial Cholesky and the Woodbury preconditioner.
+"""Pivoted partial Cholesky, sequential and blocked, and the Woodbury preconditioner.
 
-Counterpart of ``woodbury_solve``, ``preconditioner`` and
-``cholesky_partial_pivot_blocked`` in
+Counterpart of ``woodbury_solve``, ``preconditioner``,
+``cholesky_partial_pivot`` and ``cholesky_partial_pivot_blocked`` in
 ``lanczos_adjoints_tpu/precond/low_rank.py``. The factor is built under
 ``torch.no_grad()``, and both the factor and the solve refuse to be
 differentiated, as the JAX package's custom VJPs do: a preconditioner
@@ -75,6 +75,57 @@ class _RefuseGrad(torch.autograd.Function):
         raise RuntimeError(msg)
 
 
+def _refusing_grad(cholesky_fn, lazy_kernel, n):
+    """Run a factorisation without gradients; a gradient reaching it raises."""
+    with torch.no_grad():
+        factor, info = cholesky_fn(lazy_kernel, n)
+    params = getattr(lazy_kernel, "params", ())
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        factor = _RefuseGrad.apply(factor, *params)
+    return factor, info
+
+
+def cholesky_partial_pivot(*, rank: int) -> Callable:
+    """Partial Cholesky with greedy diagonal pivoting, one column a step.
+
+    Each step pivots to the largest residual diagonal entry of the
+    active (not yet pivoted) rows and evaluates one kernel column; the
+    residual diagonal is tracked, not recomputed. Below the pivot
+    threshold ``n * eps * max(diag)`` the remaining columns are zero and
+    ``info["success"]`` is False. The rows come back in the original
+    order.
+    """
+
+    def cholesky(lazy_kernel: Callable, n: int, /):
+        _check_rank(rank, n)
+        return _refusing_grad(_cholesky, lazy_kernel, n)
+
+    def _cholesky(element: Callable, n: int):
+        diag0 = element(torch.arange(n), torch.arange(n))
+        all_idx = torch.arange(n, device=diag0.device)
+        L = torch.zeros((n, rank), dtype=diag0.dtype, device=diag0.device)
+        perm, matrix_perm = all_idx.clone(), all_idx.clone()
+        residual_diag = diag0.clone()
+        tol = n * torch.finfo(diag0.dtype).eps * torch.max(diag0)
+        success = torch.tensor(True, device=diag0.device)
+        for i in range(rank):
+            k = torch.argmax(torch.where(all_idx >= i, residual_diag, -torch.inf))
+            pair = torch.stack([all_idx[i], k])
+            for arr in (matrix_perm, L, perm, residual_diag):
+                arr[pair] = arr[pair.flip(0)]
+            pivot_sq = residual_diag[i]
+            safe = pivot_sq > tol
+            pivot = torch.sqrt(torch.where(safe, pivot_sq, 1.0))
+            col = element(matrix_perm, matrix_perm[i]) - L @ L[i, :]
+            col = torch.where(safe, col / pivot, 0.0)
+            success = success & safe
+            residual_diag = torch.clamp(residual_diag - col**2, min=0.0)
+            L[:, i] = col
+        return L[torch.argsort(perm)], {"success": success}
+
+    return cholesky
+
+
 def _top_k(values, k):
     """Indices of the ``k`` largest values, lower index first among ties
     (the order of ``jax.lax.top_k``)."""
@@ -103,12 +154,7 @@ def cholesky_partial_pivot_blocked(*, rank: int, block: int = 64) -> Callable:
         if block > n:
             msg = f"block={block} exceeds n={n}"
             raise ValueError(msg)
-        with torch.no_grad():
-            factor, info = _cholesky(lazy_kernel, n)
-        params = getattr(lazy_kernel, "params", ())
-        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-            factor = _RefuseGrad.apply(factor, *params)
-        return factor, info
+        return _refusing_grad(_cholesky, lazy_kernel, n)
 
     def _cholesky(element: Callable, n: int):
         diag0 = element(torch.arange(n), torch.arange(n))

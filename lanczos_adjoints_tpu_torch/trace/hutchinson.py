@@ -46,20 +46,30 @@ def _mean(values):
     return tuple(_mean(list(group)) for group in zip(*values))
 
 
+def _probe_groups(samples, probe_sharding):
+    """The probes split into the sharding's groups, in partition order."""
+    if probe_sharding is None:
+        return [samples]
+    groups = probe_sharding.size
+    if samples.shape[0] % groups != 0:
+        msg = f"{samples.shape[0]} probes must divide evenly over {groups} probe partitions"
+        raise ValueError(msg)
+    return list(samples.chunk(groups))
+
+
 def hutchinson(integrand_fun: Callable, /, sample_fun: Callable, *, probe_sharding=None) -> Callable:
     """Monte-Carlo mean of ``integrand_fun(v, *params)`` over sampled probes.
 
-    Returns ``estimate(key, *params)``. ``probe_sharding`` (the JAX
-    package's probe axis over a device mesh) waits for the multi-device
-    layer (ROADMAP A12) and raises if given.
+    Returns ``estimate(key, *params)``. ``probe_sharding``
+    (``parallel.NamedSharding`` over a mesh's ``"probes"`` axis) splits
+    the probes into that axis's groups, which are evaluated in partition
+    order; the mean is taken over all probes in their one fixed order,
+    so the estimate is the unsharded one.
     """
-    if probe_sharding is not None:
-        msg = "probe_sharding needs the multi-device layer, which is not ported yet (ROADMAP.md A12)"
-        raise NotImplementedError(msg)
 
     def estimate(key, *parameters):
-        samples = sample_fun(key)
-        return _mean([integrand_fun(v, *parameters) for v in samples])
+        groups = _probe_groups(sample_fun(key), probe_sharding)
+        return _mean([integrand_fun(v, *parameters) for group in groups for v in group])
 
     return estimate
 

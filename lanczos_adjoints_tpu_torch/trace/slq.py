@@ -59,11 +59,11 @@ def krylov_logdet_slq(
     ``sample(key)`` returns ``(m, n)`` probes. Per probe
     (``blocked=False``) ``matvec(v, *params)`` takes one vector; blocked,
     it applies the operator to an ``(n, m)`` block. ``probe_sharding``
-    waits for the multi-device layer (ROADMAP A12) and raises if given.
+    (``parallel.NamedSharding`` over a mesh's ``"probes"`` axis) splits
+    the per-probe mode's probes over that axis (``trace.hutchinson``);
+    the blocked mode keeps its probes together and ignores it, as the
+    JAX package does.
     """
-    if probe_sharding is not None:
-        msg = "probe_sharding needs the multi-device layer, which is not ported yet (ROADMAP.md A12)"
-        raise NotImplementedError(msg)
     del checkpoint
 
     def logdet(matvec: Callable, /, key, *params):
@@ -76,7 +76,10 @@ def krylov_logdet_slq(
                 return torch.mean(integrand_b(flat.T, *p))
 
         else:
-            estimate = hutchinson(lanczos.integrand_spd(matfun, krylov_depth, matvec), sample)
+            estimate = hutchinson(
+                lanczos.integrand_spd(matfun, krylov_depth, matvec), sample,
+                probe_sharding=probe_sharding,
+            )
 
         if num_batches == 1:
             return estimate(key, *params), {"std_abs": 0.0, "std_rel": 0.0}

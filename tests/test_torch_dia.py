@@ -166,13 +166,16 @@ def test_one_registry_holds_every_kernel_and_counts_only_launches():
         fused_gram,
         fused_lanczos,
     )
+    from lanczos_adjoints_tpu_torch.parallel import fused_halo
 
     assert sorted(native.KERNELS) == [
         "arnoldi_dia_forward", "bsr_spmv", "dia_dvals", "dia_matvec", "dia_matvec_transposed",
-        "gram_dgrads", "gram_grads", "gram_matvec", "lanczos_dia_adjoint", "lanczos_dia_forward",
+        "gram_dgrads", "gram_grads", "gram_matvec", "halo_dia_matvec", "halo_dia_matvec_transposed",
+        "lanczos_dia_adjoint", "lanczos_dia_forward",
     ]
     assert native.KERNELS["lanczos_dia_forward"] is fused_lanczos.LANCZOS_FORWARD
     assert native.KERNELS["arnoldi_dia_forward"] is fused_arnoldi.ARNOLDI_FORWARD
+    assert native.KERNELS["halo_dia_matvec"] is fused_halo.HALO_DIA
     assert set(native.SOURCES) == {k.source for k in native.KERNELS.values()}
     with pytest.raises(ValueError, match="twice"):
         native.Kernel("dia_matvec", "dia", "lat_dia_matvec")

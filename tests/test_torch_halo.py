@@ -1,0 +1,243 @@
+"""The port's row-partitioned DIA operators (K11's module) against the JAX package.
+
+The JAX side runs on the 8-device virtual CPU mesh of ``tests/conftest.py``:
+its ``ppermute`` operator ``parallel.sharded_dia_operator`` and its Pallas
+halo kernel ``sharded_dia_operator_pallas`` in interpret mode, as its own
+tests run it. The port's operators take the plain halo body on the CPU
+(K11's plain version, through the same wrapper that launches K11 for a
+CUDA tensor). The same numpy inputs go to both.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from lanczos_adjoints_tpu import parallel as jparallel  # noqa: E402
+from lanczos_adjoints_tpu.ops import sparse as jsparse  # noqa: E402
+from lanczos_adjoints_tpu.parallel import pallas_halo as jpallas_halo  # noqa: E402
+from lanczos_adjoints_tpu_torch import parallel  # noqa: E402
+from lanczos_adjoints_tpu_torch.krylov import lanczos  # noqa: E402
+from lanczos_adjoints_tpu_torch.ops import fused_dia, native, sparse  # noqa: E402
+from lanczos_adjoints_tpu_torch.parallel import fused_halo  # noqa: E402
+from lanczos_adjoints_tpu_torch.utils import test_util  # noqa: E402
+from lanczos_adjoints_tpu_torch.utils.precision import pin_float32  # noqa: E402
+
+N = 16_384
+# The JAX halo tests' tolerances (tests/test_parallel/test_pallas_halo.py).
+TOL_VALUE, TOL_GRAD = 1e-5, 1e-4
+
+pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (virtual) devices")
+
+
+@pytest.fixture(autouse=True)
+def _pin():
+    pin_float32()
+
+
+def _operator(n, offsets):
+    """(JAX DIAData, port DIAData, float32 values as numpy) of the JAX test's operator."""
+    mat = test_util.banded_symmetric(n, offsets)
+    dia_j = jsparse.dia_pack(mat)
+    vals = np.asarray(jsparse.dia_values(dia_j, mat.data), dtype=np.float32)
+    dia_t, _ = sparse.dia_from_jax(dia_j, vals, device="cpu")
+    return dia_j, dia_t, vals
+
+
+def _jax_sharded(mesh, v, vals):
+    return jparallel.shard_rows(jnp.asarray(v), mesh), jparallel.shard_rows(jnp.asarray(vals), mesh, dim=1)
+
+
+def _port_operators(dia_t, mesh_t):
+    return {
+        "ppermute": parallel.sharded_dia_operator(dia_t, mesh_t),
+        "fused": parallel.sharded_dia_operator_fused(dia_t, mesh_t),
+    }
+
+
+@pytest.mark.parametrize("offsets", [(-1, 0, 1), (-130, -1, 0, 1, 130)])
+def test_operators_match_the_jax_ppermute_and_pallas_halo(offsets):
+    dia_j, dia_t, vals = _operator(N, offsets)
+    mesh_j = jparallel.device_mesh(8)
+    v = np.random.default_rng(0).normal(size=N).astype(np.float32)
+    args_j = _jax_sharded(mesh_j, v, vals)
+    want = {
+        "ppermute": np.asarray(jparallel.sharded_dia_operator(dia_j, mesh_j)(*args_j)),
+        "pallas": np.asarray(jpallas_halo.sharded_dia_operator_pallas(dia_j, mesh_j, interpret=True)(*args_j)),
+    }
+    mesh_t = parallel.device_mesh(8, device="cpu")
+    for name, op in _port_operators(dia_t, mesh_t).items():
+        got = op(torch.tensor(v), torch.tensor(vals)).numpy()
+        for ref, w in want.items():
+            np.testing.assert_allclose(got, w, atol=TOL_VALUE, rtol=0, err_msg=f"{name} vs {ref}")
+
+
+def test_gradients_match_jax_grad_through_both_operators():
+    offsets = (-128, -1, 0, 1, 128)
+    dia_j, dia_t, vals = _operator(N, offsets)
+    mesh_j = jparallel.device_mesh(8)
+    v = np.random.default_rng(1).normal(size=N).astype(np.float32)
+    u = np.random.default_rng(2).normal(size=N).astype(np.float32)
+    args_j = _jax_sharded(mesh_j, v, vals)
+    want = {}
+    for name, op in (("ppermute", jparallel.sharded_dia_operator(dia_j, mesh_j)),
+                     ("pallas", jpallas_halo.sharded_dia_operator_pallas(dia_j, mesh_j, interpret=True))):
+        grads = jax.grad(lambda vv, vl, op=op: jnp.sum(jnp.asarray(u) * op(vv, vl)), argnums=(0, 1))(*args_j)
+        want[name] = [np.asarray(g) for g in grads]
+    mesh_t = parallel.device_mesh(8, device="cpu")
+    for name, op in _port_operators(dia_t, mesh_t).items():
+        args = [torch.tensor(v, requires_grad=True), torch.tensor(vals, requires_grad=True)]
+        got = torch.autograd.grad(op(*args), args, torch.tensor(u))
+        for ref, w in want.items():
+            for g, wg, what in zip(got, w, ("dv", "dvals")):
+                np.testing.assert_allclose(g.numpy(), wg, atol=TOL_GRAD, rtol=0,
+                                           err_msg=f"{what}: {name} vs {ref}")
+
+
+@pytest.mark.parametrize("n_partitions", [1, 2, 8])
+@pytest.mark.parametrize("offsets", [(-1, 0, 1), (-130, -7, 0, 7, 130), (-1024, -1, 0, 1, 1024)])
+def test_plain_halo_equals_the_unsharded_dia_matvec_exactly(n_partitions, offsets):
+    """The same products summed in the same order (k = 0 .. D - 1 from
+    zero), so bit for bit; random values in every slot, the wrapped ones
+    too."""
+    rng = np.random.default_rng(4)
+    v, u = (torch.tensor(rng.standard_normal(N), dtype=torch.float32) for _ in range(2))
+    vals = torch.tensor(rng.standard_normal((len(offsets), N)), dtype=torch.float32)
+    want = fused_dia.dia_matvec_plain(offsets, v, vals)
+    assert torch.equal(fused_halo.halo_dia_plain(offsets, v, vals, n_partitions), want)
+    exchange = fused_halo.HaloExchange(n_partitions, fused_halo.halo_width(offsets))
+    assert torch.equal(fused_halo.halo_dia_rows(offsets, v, vals, exchange), want)
+    # One allocation per partition, as K11 takes them on the card.
+    parts = fused_halo.halo_dia_parts(
+        offsets, [c.clone() for c in v.chunk(n_partitions)],
+        [c.contiguous() for c in vals.chunk(n_partitions, dim=1)], exchange,
+    )
+    assert torch.equal(torch.cat(parts), want)
+    assert torch.equal(fused_halo.halo_dvals_plain(offsets, v, u, n_partitions),
+                       fused_dia.dia_dvals_plain(offsets, v, u))
+
+
+def test_nonsymmetric_values_keep_each_operators_vjp():
+    """``sharded_dia_operator`` gives the true transpose product for ``dv``
+    (the JAX ppermute operator's autodiff), off the card by autograd and
+    on it by K11 on the transposed operator; ``sharded_dia_operator_fused``
+    keeps the JAX Pallas VJP, ``dv = A u``."""
+    offsets = (-130, -7, 0, 7, 130)
+    dia_j, dia_t, _ = _operator(N, offsets)
+    rng = np.random.default_rng(5)
+    vals = rng.standard_normal((len(offsets), N)).astype(np.float32)
+    v, u = (rng.standard_normal(N).astype(np.float32) for _ in range(2))
+    mesh_j = jparallel.device_mesh(8)
+    args_j = _jax_sharded(mesh_j, v, vals)
+    op_j = jparallel.sharded_dia_operator(dia_j, mesh_j)
+    dv_j, dvals_j = (np.asarray(g) for g in jax.grad(
+        lambda vv, vl: jnp.sum(jnp.asarray(u) * op_j(vv, vl)), argnums=(0, 1))(*args_j))
+    mesh_t = parallel.device_mesh(8, device="cpu")
+    transposed = fused_halo.sharded_dia_operator_fused(dia_t, mesh_t, check_tiling=False, symmetric=False)
+    for op in (parallel.sharded_dia_operator(dia_t, mesh_t), transposed):
+        args = [torch.tensor(v, requires_grad=True), torch.tensor(vals, requires_grad=True)]
+        dv, dvals = torch.autograd.grad(op(*args), args, torch.tensor(u))
+        np.testing.assert_allclose(dv.numpy(), dv_j, atol=TOL_GRAD, rtol=0)
+        np.testing.assert_allclose(dvals.numpy(), dvals_j, atol=TOL_GRAD, rtol=0)
+    symmetric = parallel.sharded_dia_operator_fused(dia_t, mesh_t)
+    args = [torch.tensor(v, requires_grad=True), torch.tensor(vals)]
+    (dv,) = torch.autograd.grad(symmetric(*args), args[:1], torch.tensor(u))
+    assert torch.equal(dv, fused_dia.dia_matvec_plain(offsets, torch.tensor(u), torch.tensor(vals)))
+
+
+def test_every_jax_error_has_its_counterpart():
+    mesh_j, mesh_t = jparallel.device_mesh(8), parallel.device_mesh(8, device="cpu")
+    cases = [
+        # (n, offsets, factory, match): n % P, halo > local_n, the fused
+        # kernel's tiling (n % (P x 1024)), halo rows against local rows.
+        (1001, (-1, 0, 1), "sharded_dia_operator", "divide evenly"),
+        (64, (-9, 0, 9), "sharded_dia_operator", "exceeds local rows"),
+        (1024, (-1, 0, 1), "sharded_dia_operator_pallas", "divide into"),
+        (8192, (-130, 0, 130), "sharded_dia_operator_pallas", "halo rows"),
+    ]
+    for n, offsets, factory, match in cases:
+        dia_j, dia_t, _ = _operator(n, offsets)
+        jbuild = getattr(jparallel, factory, None) or getattr(jpallas_halo, factory)
+        tbuild = (parallel.sharded_dia_operator if factory == "sharded_dia_operator"
+                  else parallel.sharded_dia_operator_fused)
+        with pytest.raises(ValueError, match=match):
+            jbuild(dia_j, mesh_j)
+        with pytest.raises(ValueError, match=match):
+            tbuild(dia_t, mesh_t)
+    # Without the JAX tiling rule K11 takes any n % P == 0 with
+    # 2 halo <= local rows, and refuses the rest.
+    _dj, dia_t, vals = _operator(1000, (-60, 0, 60))
+    op = parallel.sharded_dia_operator_fused(dia_t, mesh_t, check_tiling=False)
+    assert op(torch.ones(1000), torch.tensor(vals)).shape == (1000,)
+    _dj, dia_t, _ = _operator(1000, (-63, 0, 63))
+    with pytest.raises(ValueError, match="2 x halo"):
+        parallel.sharded_dia_operator_fused(dia_t, mesh_t, check_tiling=False)
+    with pytest.raises(ValueError, match="divide evenly"):
+        parallel.sharded_dia_operator_fused(_operator(1001, (-1, 0, 1))[1], mesh_t, check_tiling=False)
+    with pytest.raises(ValueError, match="diagonals"):
+        fused_halo.halo_dia_rows(tuple(range(-40, 40)), torch.ones(1024), torch.ones(80, 1024),
+                                 fused_halo.HaloExchange(8, 40))
+    with pytest.raises(TypeError, match="float32"):
+        fused_halo.halo_dia_rows((-1, 0, 1), torch.ones(1024).double(), torch.ones(3, 1024).double(),
+                                 fused_halo.HaloExchange(8, 1))
+    with pytest.raises(ValueError, match="halo 1 of the offsets, 2"):
+        fused_halo.halo_dia_rows((-1, 0, 1), torch.ones(1024), torch.ones(3, 1024),
+                                 fused_halo.HaloExchange(8, 2))
+    with pytest.raises(ValueError, match="partitions"):
+        fused_halo.HaloExchange(native.MAX_PARTITIONS + 1, 1)
+
+
+@pytest.fixture
+def _on_card(monkeypatch):
+    """The card's dispatch on CPU tensors, with every K11 wrapper call logged."""
+    monkeypatch.setattr(native, "on_card", lambda device: True)
+    calls = []
+    wrapped = fused_halo.halo_dia_rows
+
+    def spy(offsets, v, vals, exchange, *, kernel=fused_halo.HALO_DIA):
+        calls.append(kernel.name)
+        return wrapped(offsets, v, vals, exchange, kernel=kernel)
+
+    monkeypatch.setattr(fused_halo, "halo_dia_rows", spy)
+    return calls
+
+
+def test_on_the_card_the_sharded_operator_takes_k11_and_tridiag_stays_generic(_on_card):
+    depth, offsets = 10, (-128, -1, 0, 1, 128)
+    mat = test_util.five_diagonal(N, 128)
+    dia = sparse.dia_pack(mat)
+    vals = sparse.dia_values(dia, mat.data, device="cpu")
+    matvec = parallel.sharded_dia_operator(dia, parallel.device_mesh(8, device="cpu"))
+    assert dia.offsets == offsets and not hasattr(matvec, "dia_data")
+    log = []
+    estimate = lanczos.tridiag(matvec, depth, reortho="none", dispatch_log=log)
+    args = [torch.ones(N, requires_grad=True), vals.clone().requires_grad_()]
+    (xs, (alphas, betas)), (x_res, beta_res) = estimate(*args)
+    outs = [xs, alphas, betas, x_res, beta_res]
+    dv, dvals = torch.autograd.grad(outs, args, [torch.ones_like(o) for o in outs])
+    assert log == ["tridiag:generic"]
+    # K forward products and K adjoint products A lambda; the adjoint
+    # never asks for the matvec's dv, so no transposed launch.
+    assert _on_card.count("halo_dia_matvec") == 2 * depth
+    assert "halo_dia_matvec_transposed" not in _on_card
+    assert bool(torch.isfinite(dv).all()) and bool(torch.isfinite(dvals).all())
+    # A dv of the matvec itself goes through K11 on the transpose.
+    del _on_card[:]
+    v = torch.ones(N, requires_grad=True)
+    torch.autograd.grad(matvec(v, vals), [v], torch.ones(N))
+    assert _on_card == ["halo_dia_matvec", "halo_dia_matvec_transposed"]
+
+
+def test_exchange_buffers_start_poisoned_and_epochs_wrap():
+    exchange = fused_halo.HaloExchange(3, 5)
+    recv, flags, recv_table, flag_table = exchange.buffers("cpu")
+    assert len(recv) == 3 and recv[0].shape == (2, 2, 5) and bool(torch.isnan(recv[2]).all())
+    assert all(int(f.abs().sum()) == 0 for f in flags)
+    assert recv_table.tolist() == [t.data_ptr() for t in recv]
+    assert flag_table.tolist() == [t.data_ptr() for t in flags]
+    assert exchange.buffers("cpu")[2] is recv_table
+    assert [exchange.next_epoch() for _ in range(2)] == [1, 2]
+    exchange.epoch = 2**32 - 1
+    assert exchange.next_epoch() == 0

@@ -18,6 +18,7 @@ from lanczos_adjoints_tpu import solvers as jsolvers  # noqa: E402
 from lanczos_adjoints_tpu.krylov import lanczos as jlanczos  # noqa: E402
 from lanczos_adjoints_tpu.models import gp as jgp  # noqa: E402
 from lanczos_adjoints_tpu.trace import slq as jslq  # noqa: E402
+from lanczos_adjoints_tpu_torch import parallel  # noqa: E402
 from lanczos_adjoints_tpu_torch.krylov import lanczos  # noqa: E402
 from lanczos_adjoints_tpu_torch.models import gp  # noqa: E402
 from lanczos_adjoints_tpu_torch.precond import low_rank  # noqa: E402
@@ -260,12 +261,28 @@ def test_blocked_slq_value_and_gradient_match_jax(matfun):
 
 
 def test_slq_modes_of_a_later_slice_raise():
-    """Per-probe SLQ and several batches are ported (slice 3); probe
-    sharding waits for the multi-device layer."""
-    with pytest.raises(NotImplementedError, match="A12"):
-        slq.krylov_logdet_slq(5, sample=None, num_batches=1, checkpoint=False, probe_sharding=object())
+    """Per-probe SLQ and several batches are ported (slice 3), and probe
+    sharding with the multi-device layer (slice 5): no mode raises any
+    more; the per-probe mode splits its probes over the mesh's "probes"
+    axis, the blocked mode ignores the sharding, as in the JAX package."""
+    grid = parallel.make_mesh({"rows": 1, "probes": 2}, device="cpu")
+    sharding = parallel.NamedSharding(grid, "probes")
+    rng = np.random.default_rng(5)
+    probes = torch.tensor(rng.choice([-1.0, 1.0], size=(4, 16)))
+    B = torch.tensor(rng.standard_normal((16, 16)))
+    A = B @ B.T + 16 * torch.eye(16, dtype=torch.float64)
+
+    def matvec(v, a):
+        return a @ v
+
     for blocked in (False, True):
         slq.krylov_logdet_slq(5, sample=None, num_batches=2, checkpoint=False, blocked=blocked)
+        values = [
+            slq.krylov_logdet_slq(5, sample=lambda _k: probes, num_batches=1, checkpoint=False,
+                                  blocked=blocked, probe_sharding=s)(matvec, None, A)[0]
+            for s in (None, sharding)
+        ]
+        assert torch.equal(*values) and bool(torch.isfinite(values[0]))
 
 
 def test_rademacher_sampler_draws_signs_from_generator():

@@ -23,6 +23,7 @@ from lanczos_adjoints_tpu.krylov import lanczos as jlanczos  # noqa: E402
 from lanczos_adjoints_tpu.ops import dense as jdense  # noqa: E402
 from lanczos_adjoints_tpu.ops import sparse as jsparse  # noqa: E402
 from lanczos_adjoints_tpu.trace import slq as jslq  # noqa: E402
+from lanczos_adjoints_tpu_torch import parallel  # noqa: E402
 from lanczos_adjoints_tpu_torch.krylov import lanczos  # noqa: E402
 from lanczos_adjoints_tpu_torch.ops import dense, fused_arnoldi, native, sparse  # noqa: E402
 from lanczos_adjoints_tpu_torch.trace import hutchinson, slq  # noqa: E402
@@ -256,8 +257,17 @@ def test_hutchinson_takes_structured_integrands_and_refuses_what_waits():
     total, (first, second) = est(None)
     _close(total, probes.sum(dim=1).mean(), 1e-12)
     _close(second, 2 * probes[:, 1].mean(), 1e-12)
-    with pytest.raises(NotImplementedError, match="A12"):
-        hutchinson.hutchinson(_quad, lambda _k: probes, probe_sharding=object())
+    # Probe sharding (the multi-device layer) splits the 4 probes over a
+    # mesh's "probes" axis and gives the unsharded estimate; 3 groups do
+    # not divide 4 probes.
+    sharded = hutchinson.hutchinson(
+        lambda v: (v.sum(), (v[0], v[1] * 2)), lambda _k: probes,
+        probe_sharding=parallel.NamedSharding(parallel.make_mesh({"probes": 2}, device="cpu"), "probes"),
+    )(None)
+    assert all(torch.equal(a, b) for a, b in zip((sharded[0], *sharded[1]), (total, first, second)))
+    with pytest.raises(ValueError, match="divide evenly"):
+        hutchinson.hutchinson(_quad, lambda _k: probes, probe_sharding=parallel.NamedSharding(
+            parallel.make_mesh({"probes": 3}, device="cpu"), "probes"))(None, torch.eye(N))
     with pytest.raises(RuntimeError) as want:
         jhutchinson.hutchinson_custom_vjp(_quad, lambda _k: jnp.asarray(_probes()))(
             jax.random.PRNGKey(0), jnp.eye(N))
