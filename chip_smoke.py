@@ -8,10 +8,13 @@ Phases, in order:
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build (one nvcc per source, in parallel), with its time;
   3. kernel parity: K1 (``csrc/gram_matvec.cu``) with its autograd
-     backward, and K2 (``csrc/gram_grads.cu``), against their plain
-     PyTorch versions on the card, for rbf / matern12 / matern32,
-     d in {1, 8, 12, 40}, scalar and ARD lengthscales, K1 at m in
-     {1, 15, 40} and K2 at m in {1, 225}, ragged row counts;
+     backward, and K2 (``csrc/gram_grads.cu``, bit for bit across two
+     runs), against their plain PyTorch versions on the card, for rbf /
+     matern12 / matern32, d in {1, 8, 12, 40, 65, 130} (the last two
+     wide rows in chunks of 64), scalar and ARD lengthscales, K1 at m in
+     {1, 15, 40} and K2 at m in {1, 225}, ragged row counts; K1's short
+     transcendentals entry by entry from p = 0 to distances of ~30; K1
+     with its column split at 50,000 x 400,000 (the first 4,096 rows);
   4. the oracle: at N = 2,048 the Krylov marginal likelihood against a
      dense Cholesky one, and its gradient through the kernels against
      the gradient through the plain versions;
@@ -58,22 +61,28 @@ Phases, in order:
      adjoint gradient against backprop, then three Adam steps;
  14. K9's time per launch beside its bound and plain version;
  15. K3 parity (``csrc/gram_dgrads.cu``): the data-gradient moments
-     against their plain version at [parity]'s rows, bit for bit across
+     against their plain version at [parity]'s rows and widths, bit for bit across
      two runs, and the Function's x and y gradients against autograd
      through the plain matvec (run after phase 5);
  16. the input-gradient slice: at N = 2,048 the gradient in the
      parameters and the training inputs through the kernels against the
      plain policy, then one step at N_train = 400,000 with its launches
      (K3 is timed with K1 and K2 in phase 4's table);
- 17. BSR parity: K10 (``csrc/bsr.cu``) and its Function's backward
-     against the plain versions on the FEM test matrix (grid 24), its
-     RCM permutation and a ragged rectangular matrix;
+ 17. BSR parity: K10 (``csrc/bsr.cu``, over the packed CSR view of the
+     tiles) against both plain versions (the tile product and the packed
+     product), bit for bit across two runs, and its Function's backward,
+     on the FEM test matrix (grid 24), its RCM permutation, a ragged
+     rectangular matrix, tiles with values off the CSR structure and
+     tiles updated in place between two calls (the cache packs again);
  18. the BSR slice: the FEM matrix -> ``sparse_operator`` (BSR, K10) ->
      the Lanczos (K = 90) and re-orthogonalised Arnoldi VJPs, custom
-     adjoint and backprop, per-probe SLQ against a float64 dense
-     Cholesky log-determinant, and one Lanczos VJP over a HYB operator;
- 19. K10's time per launch beside its bound, plain version and
-     cuSPARSE;
+     adjoint and backprop (one pack of the tiles a VJP), per-probe SLQ
+     against a float64 dense Cholesky log-determinant, and one Lanczos
+     VJP over a HYB operator;
+ 19. K10's time per launch with the L2 flushed before each call (cold)
+     and with only the vector changing (warm), beside cuSPARSE CSR under
+     both, the bound on the bytes the nonzeros need, its plain version
+     and the pack;
  20. halo parity: K11 (``csrc/halo_dia.cu``) on P in {1, 2, 8}
      partitions, one allocation each, NaN-poisoned receive buffers, two
      successive calls, against its plain version and K4 on the whole
@@ -93,6 +102,10 @@ Phases, in order:
  23. K11's time per launch at n = 2^20, P = 8 and 1, beside its bound,
      its plain version, K4 on the whole vector and cuSPARSE. The kernels
      of every slice, with their numbers, form one JSON line.
+Every profiled run prints the profiler's launch count of each of the
+port's kernels beside the registry's, and flags a kernel whose launches
+the profiler missed (its busy time is then a lower bound, its idle share
+an upper bound).
 The last two lines are the card (``name, power.limit``) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -110,6 +123,9 @@ import torch
 # fp32 rates of one H100 SXM (NVIDIA data sheet): CUDA-core peak and HBM3.
 PEAK_FLOPS_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# The dense TF32 tensor-core peak, over the three products of a 3xTF32
+# (fp32-accurate) contraction.
+PEAK_FLOPS_3XTF32 = 495e12 / 3
 
 # Kernel-vs-plain tolerances on the card (max abs error over max |plain|).
 # Both sides compute the same direct-difference cells in float32; they
@@ -158,6 +174,28 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _clocks() -> str:
+    """The card's SM clock, its maximum, power draw and temperature now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "not measured"
+
+
+def _events_ms_clocked(fn, reps):
+    """``events_ms(fn, reps)``, with the card's clocks read while the runs
+    it enqueued are still executing."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    clocks = _clocks()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps, clocks
+
+
 def _rel_err(a, b) -> float:
     scale = float(b.abs().max())
     return float((a - b).abs().max()) / max(scale, 1e-30)
@@ -185,11 +223,15 @@ def phase_build():
 
 
 def phase_parity(device="cuda", rows=(3001, 2777), kinds=("rbf", "matern12", "matern32"),
-                 dims=(1, 8, 12, 40)):
+                 dims=(1, 8, 12, 40, 65, 130)):
     """K1, its autograd backward and K2 against their plain versions.
 
-    d = 40 reaches the widest instantiation (rows padded to 64); K1 at
-    m = 40 serves the right-hand sides in three chunks, the last ragged.
+    d = 40 reaches the 64-wide instantiation and d = 65, 130 the wide
+    rows (padded to 128 and 192, taken in chunks of 64); K1 at m = 40
+    serves the right-hand sides in three passes, the last ragged. K2 is
+    bit for bit across two runs. Then K1's short transcendentals at the
+    tails (p = 0 and distances up to ~30) entry by entry, and K1 with its
+    column split at 50,000 x 400,000 rows.
     """
     from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
 
@@ -202,7 +244,9 @@ def phase_parity(device="cuda", rows=(3001, 2777), kinds=("rbf", "matern12", "ma
             x = torch.tensor(rng.standard_normal((n, d)), dtype=torch.float32, device=device)
             y = torch.tensor(rng.standard_normal((n_cols, d)), dtype=torch.float32, device=device)
             for ard in (False, True):
-                ell_np = rng.uniform(0.5, 2.0, (d,) if ard else ())
+                # Wide rows: lengthscales grown with sqrt(d), so that the
+                # kernel values stay away from 0 as at the narrow widths.
+                ell_np = rng.uniform(0.5, 2.0, (d,) if ard else ()) * _wide_scale(d)
                 ell = torch.tensor(ell_np, dtype=torch.float32, device=device)
                 out_s = torch.tensor(1.3, dtype=torch.float32, device=device)
                 xs, ys = fg.kernel_rows(x, ell, kind), fg.kernel_rows(y, ell, kind)
@@ -232,12 +276,77 @@ def phase_parity(device="cuda", rows=(3001, 2777), kinds=("rbf", "matern12", "ma
                     v = torch.tensor(rng.standard_normal((n_cols, m)), dtype=torch.float32, device=device)
                     u = torch.tensor(rng.standard_normal((n, m)), dtype=torch.float32, device=device)
                     got = fg.gram_grads_rows(kind, xs, ys, v, u)
+                    again = fg.gram_grads_rows(kind, xs, ys, v, u)
                     want = fg.gram_grads_plain(kind, xs, ys, v, u)
                     torch.cuda.synchronize()
                     _report(f"K2 {tag} m={m}", _rel_err(got, want), TOL_K2, failures)
+                    if not torch.equal(got, again):
+                        print(f"  K2 {tag} m={m}: two runs differ FAIL", flush=True)
+                        failures.append(f"K2 {tag} m={m} bitwise")
+    _parity_k1_tails(kinds, failures)
+    _parity_k1_split(failures)
     if failures:
         msg = f"{len(failures)} kernel parity checks failed: {failures[:5]}"
         raise RuntimeError(msg)
+
+
+def _wide_scale(d):
+    return np.sqrt(d / 8) if d > 64 else 1.0
+
+
+def _parity_k1_tails(kinds, failures):
+    """K1's Gram values entry by entry (v = the identity), against the plain
+    version's full-precision sqrt and exp, from p = 0 (y = x) to distances
+    of ~30, where the values fall to ~1e-12 (Matern) and below."""
+    from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
+
+    n_cols, d = 16, 8
+    y = torch.zeros((n_cols, d), device=DEVICE)
+    y[:, 0] = torch.linspace(0.0, 30.0, n_cols, device=DEVICE)
+    x = y.repeat(4, 1)  # rows at every distance from every column, p = 0 on the diagonal
+    x[n_cols:, 1] = torch.linspace(1e-4, 3.0, 3 * n_cols, device=DEVICE)
+    eye = torch.eye(n_cols, device=DEVICE)
+    for kind in kinds:
+        for m in (1, n_cols):
+            one = torch.tensor(1.0, device=DEVICE)
+            xs, ys = fg.kernel_rows(x, one, kind), fg.kernel_rows(y, one, kind)
+            v = eye[:, :m].contiguous()
+            got = fg.gram_matvec_rows(kind, xs, ys, v)
+            want = fg.gram_matvec_plain(kind, xs, ys, v)
+            torch.cuda.synchronize()
+            live = want > 1e-30
+            rel = float(((got - want).abs()[live] / want[live]).max())
+            tiny = float(got[~live].abs().max()) if bool((~live).any()) else 0.0
+            _report(f"K1 tails {kind} m={m} (entrywise over {int(live.sum())} values > 1e-30, "
+                    f"min {float(want[live].min()):.2e}; max |K1| at the others {tiny:.1e}, limit 2e-30)",
+                    rel if tiny <= 2e-30 else float("inf"), TOL_K1, failures)
+
+
+def _parity_k1_split(failures, cases=((50_000, N_TRAIN, 8, (1, 15), 4096), (3_000, 20_000, 130, (15,), 3_000))):
+    """K1 with its column split, the segments summed in the launch: at one of
+    8 row partitions of the main path's shape (the first rows against the
+    plain version), and on wide rows (the staged kernel), bit for bit
+    across two runs."""
+    from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
+
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, n_cols, d, ms, check_rows in cases:
+        ell = torch.full((d,), 0.9 * _wide_scale(d), device=DEVICE)
+        xs = fg.kernel_rows(torch.randn((n, d), generator=g, device=DEVICE), ell, "matern32")
+        ys = fg.kernel_rows(torch.randn((n_cols, d), generator=g, device=DEVICE), ell, "matern32")
+        splits = fg.column_splits(n, n_cols, sms)
+        for m in ms:
+            v = torch.randn((n_cols, m), generator=g, device=DEVICE)
+            got = fg.gram_matvec_rows("matern32", xs, ys, v)
+            again = fg.gram_matvec_rows("matern32", xs, ys, v)
+            want = fg.gram_matvec_plain("matern32", xs[:check_rows], ys, v)
+            torch.cuda.synchronize()
+            tag = f"K1 {n} x {n_cols} d={d} m={m}, {splits} column segments"
+            _report(f"{tag} (first {check_rows} rows)", _rel_err(got[:check_rows], want), TOL_K1, failures)
+            if splits < 2 or not torch.equal(got, again):
+                print(f"  {tag}: not split, or two runs differ FAIL", flush=True)
+                failures.append(f"{tag} bitwise")
 
 
 def _plain_policy():
@@ -359,7 +468,7 @@ def phase_slice(n_train, steps):
 
 
 def phase_parity_dgrads(rows=(3001, 2777), kinds=("rbf", "matern12", "matern32"),
-                        dims=(1, 8, 12, 40)):
+                        dims=(1, 8, 12, 40, 65, 130)):
     """K3 against its plain version at [parity]'s rows, bit for bit across
     two runs; the Function's x and y gradients (K3 twice) against autograd
     through the plain matvec."""
@@ -373,7 +482,8 @@ def phase_parity_dgrads(rows=(3001, 2777), kinds=("rbf", "matern12", "matern32")
         tol = TOL_K3[kind]
         for d in dims:
             x, y = _tensor(rng, (n, d)), _tensor(rng, (n_cols, d))
-            ell = torch.tensor(rng.uniform(0.5, 2.0, d), dtype=torch.float32, device=DEVICE)
+            ell = torch.tensor(rng.uniform(0.5, 2.0, d) * _wide_scale(d), dtype=torch.float32,
+                               device=DEVICE)
             xs, ys = fg.kernel_rows(x, ell, kind), fg.kernel_rows(y, ell, kind)
             for m in (1, 225):
                 v, u = _tensor(rng, (n_cols, m)), _tensor(rng, (n, m))
@@ -483,14 +593,31 @@ def phase_slice_dgrads(n_train, n_oracle=2048):
 
 
 def _cell_ops(kernel, m, d=8):
-    """fp32 operations per cell: distance 3d, Matern-3/2 value 5 (K1),
-    value and derivative plus the weighted sums 5d + 9 (K2) or the
-    derivative and the moments 5d + 10 (K3); contraction 2m."""
-    return 2 * m + {"K1": 3 * d + 5, "K2": 5 * d + 9, "K3": 5 * d + 10}[kernel]
+    """(fp32 operations, contraction operations) per cell: distance 3d,
+    Matern-3/2 value 5 (K1), value and derivative plus the weighted sums
+    5d + 9 (K2) or the derivative and the moments 5d + 10 (K3); the
+    contraction 2m. K2 and K3 contract on the fp32 pipes, so their second
+    number is 0 and the first holds it."""
+    if kernel == "K1":
+        return 3 * d + 5, 2 * m
+    return 2 * m + {"K2": 5 * d + 9, "K3": 5 * d + 10}[kernel], 0
 
 
-def phase_timing(n, slice_counts, dgrads_counts):
-    """Gram kernel and plain times at the GP slices' shapes; their kernels-line entries."""
+def _gram_bound(kernel, cells, m, nbytes):
+    """The least time for the work, whatever implements it: the larger of
+    the fp32 operations at 67 TFLOP/s, K1's contraction at the 3xTF32 rate
+    and the bytes at 3.35 TB/s; and the all-fp32 bound (every operation at the
+    fp32 rate), printed beside it so that earlier rows stay comparable."""
+    fp32_ops, mma_ops = _cell_ops(kernel, m)
+    ops = max(cells * fp32_ops / PEAK_FLOPS_FP32, cells * mma_ops / PEAK_FLOPS_3XTF32)
+    old = 1e3 * max(cells * (fp32_ops + mma_ops) / PEAK_FLOPS_FP32, nbytes / PEAK_BYTES)
+    return 1e3 * max(ops, nbytes / PEAK_BYTES), "operations" if ops >= nbytes / PEAK_BYTES else "bytes", old
+
+
+def phase_timing(n, slice_counts, dgrads_counts, split_rows=50_000):
+    """Gram kernel and plain times at the GP slices' shapes, and K1 at one of
+    8 row partitions (``split_rows`` x n, the column split); their
+    kernels-line entries."""
     from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
     from lanczos_adjoints_tpu_torch.utils.timing import events_ms
 
@@ -499,16 +626,18 @@ def phase_timing(n, slice_counts, dgrads_counts):
     X = torch.randn((n, 8), generator=g, device=DEVICE)
     ell = torch.full((8,), 0.9, device=DEVICE)
     xs = fg.kernel_rows(X, ell, "matern32")
-    kinds = {"K1": [1, 15], "K2": [1, 225], "K3": [1, 225]}
+    kinds = {"K1": [1, 15], "K2": [1, 225], "K3": [1, 225], "K1 split": [1, 15]}
     shapes = {}
     for kernel, ms_ in kinds.items():
+        rows = xs[:split_rows] if kernel == "K1 split" else xs
+        n_rows = rows.shape[0]
         for m in ms_:
             v = torch.randn((n, m), generator=g, device=DEVICE)
-            u = torch.randn((n, m), generator=g, device=DEVICE)
-            if kernel == "K1":
-                run = lambda: fg.gram_matvec_rows("matern32", xs, xs, v)  # noqa: E731
-                plain = lambda: fg.gram_matvec_plain("matern32", xs, xs, v)  # noqa: E731
-                nbytes = 4 * (2 * n * 8 + 2 * n * m)
+            u = torch.randn((n_rows, m), generator=g, device=DEVICE)
+            if kernel.startswith("K1"):
+                run = lambda: fg.gram_matvec_rows("matern32", rows, xs, v)  # noqa: E731
+                plain = lambda: fg.gram_matvec_plain("matern32", rows, xs, v)  # noqa: E731
+                nbytes = 4 * ((n_rows + n) * 8 + (n_rows + n) * m)
             elif kernel == "K2":
                 run = lambda: fg.gram_grads_rows("matern32", xs, xs, v, u)  # noqa: E731
                 plain = lambda: fg.gram_grads_plain("matern32", xs, xs, v, u)  # noqa: E731
@@ -518,7 +647,7 @@ def phase_timing(n, slice_counts, dgrads_counts):
                 plain = lambda: fg.gram_dgrads_plain("matern32", xs, xs, v, u)  # noqa: E731
                 nbytes = 4 * (2 * n * 8 + 2 * n * m + n * 9)
             got = run()  # warm-up, and the value held against the plain one
-            ms = events_ms(run, 2)
+            ms, clocks = _events_ms_clocked(run, 2)
             # One timed plain run: it loops over thousands of row chunks,
             # so its first chunk's warm-up is lost in the total.
             want = []
@@ -526,16 +655,16 @@ def phase_timing(n, slice_counts, dgrads_counts):
             want = want[0]
             err = float((got - want).abs().max())
             rel = err / float(want.abs().max())
-            ops = n * n * _cell_ops(kernel, m)
-            bound_ms = 1e3 * max(ops / PEAK_FLOPS_FP32, nbytes / PEAK_BYTES)
-            by = "operations" if ops / PEAK_FLOPS_FP32 >= nbytes / PEAK_BYTES else "bytes"
+            bound_ms, by, old_bound_ms = _gram_bound(kernel[:2], n_rows * n, m, nbytes)
             shapes[(kernel, m)] = {
-                "m": m, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": by, "max_abs_err": err, "max_rel_err": rel,
+                "m": m, "n_rows": n_rows, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": by, "bound_ms_all_fp32": old_bound_ms, "max_abs_err": err, "max_rel_err": rel,
+                "clocks": clocks,
             }
-            print(f"  {kernel} m={m}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                  f"{bound_ms:.3f} ms ({by}), max abs err {err:.3e} (rel {rel:.2e})", flush=True)
-            tol = {"K1": TOL_K1, "K2": TOL_K2, "K3": TOL_K3["matern32"]}[kernel]
+            print(f"  {kernel} {n_rows} x {n} m={m}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{bound_ms:.3f} ms ({by}; all-fp32 bound {old_bound_ms:.3f} ms), max abs err {err:.3e} "
+                  f"(rel {rel:.2e}); SM clock, max, power, temperature while it ran: {clocks}", flush=True)
+            tol = {"K1": TOL_K1, "K2": TOL_K2, "K3": TOL_K3["matern32"]}[kernel[:2]]
             if not rel <= tol:
                 raise RuntimeError(f"{kernel} m={m} disagrees with its plain version at N={n}")
             del v, u, got, want
@@ -552,7 +681,7 @@ def phase_timing(n, slice_counts, dgrads_counts):
         main = shapes[(kernel, main_m)]
         # K1/K2 on the main path: the training steps; K3: the input-gradient step.
         counts = dgrads_counts if kernel == "K3" else slice_counts
-        entries.append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts["launches"][idx],
             "launches_per_step": [c[idx] for c in counts["per_step"]],
@@ -561,7 +690,10 @@ def phase_timing(n, slice_counts, dgrads_counts):
             "bound_by": main["bound_by"], "library_ms": None,
             "n": n, "m": main_m,
             "by_m": [shapes[(kernel, m)] for m in kinds[kernel]],
-        })
+        }
+        if kernel == "K1":
+            entry["split"] = [shapes[("K1 split", m)] for m in kinds["K1 split"]]
+        entries.append(entry)
     return entries
 
 
@@ -849,21 +981,42 @@ def _short(name):
     return name.split("(")[0][:60]
 
 
+def _profiled(fn):
+    """``device_profile(fn)``, with the profiler's launch count of each of the
+    port's kernels printed beside the registry's for the same run, and a
+    line of its own for each kernel the profiler missed launches of."""
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.utils.timing import device_profile, launch_report
+
+    before = native.launch_counts()
+    wall_ms, kernels = device_profile(fn)
+    launched = {k: c - before[k] for k, c in native.launch_counts().items()}
+    report, missed = launch_report(kernels, launched, native.device_symbols())
+    print("    launches (profiler / registry): "
+          + ("; ".join(f"{sym} {seen} / {count}" for sym, (seen, count) in report.items()) or "none"),
+          flush=True)
+    for sym in missed:
+        seen, count = report[sym]
+        print(f"    LAUNCH COUNT MISMATCH {sym}: the profiler saw {seen} of {count} launches; this "
+              f"run's device busy time is a lower bound, its idle share an upper bound", flush=True)
+    return wall_ms, kernels, {"launches": report, "missed": missed}
+
+
 def _print_profile(label, fn):
     """One run of ``fn`` under the profiler: device busy time, idle share, top kernels."""
-    from lanczos_adjoints_tpu_torch.utils.timing import device_profile
-
-    wall_ms, kernels = device_profile(fn)
+    print(f"  profile {label}:", flush=True)
+    wall_ms, kernels, launches = _profiled(fn)
     if not kernels:
         print(f"  profile {label}: the profiler saw no device activity; device time not measured")
         return None
     busy = sum(t for _count, t in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
+    bound = " (busy a lower, idle an upper bound: launches missed)" if launches["missed"] else ""
     print(f"  profile {label} (one run under torch.profiler): wall {wall_ms:.3f} ms, device busy "
-          f"{busy:.3f} ms, idle share {1.0 - busy / wall_ms:.3f}; top: "
+          f"{busy:.3f} ms, idle share {1.0 - busy / wall_ms:.3f}{bound}; top: "
           + "; ".join(f"{_short(name)} x{c} {t:.3f} ms" for name, (c, t) in top), flush=True)
     return {"wall_ms": wall_ms, "busy_ms": busy,
-            "top": [[_short(name), c, t] for name, (c, t) in top], "kernels": kernels}
+            "top": [[_short(name), c, t] for name, (c, t) in top], "kernels": kernels, **launches}
 
 
 def _per_launch_ms(kernels, symbol):
@@ -897,7 +1050,7 @@ def _record(rows, failures, key, symbol, runs, plains, nbytes, ops, reps, plain_
     plain one, output by output, within ``tols`` or, given the float64
     plain result ``exact``, within the spread-derived limit (a miss
     appends ``key`` to ``failures``)."""
-    from lanczos_adjoints_tpu_torch.utils.timing import device_profile, events_ms
+    from lanczos_adjoints_tpu_torch.utils.timing import events_ms
 
     got = runs[0]()  # warm-up, and the value held against the plain one
     want = plains[0]()
@@ -911,7 +1064,7 @@ def _record(rows, failures, key, symbol, runs, plains, nbytes, ops, reps, plain_
     plain_ms = events_ms(plain, plain_reps)
     # The kernel's own device time per launch, without the host's
     # share of back-to-back launches, where the profiler sees it.
-    _wall, kernels = device_profile(lambda: [run() for _ in range(reps)])
+    _wall, kernels, _counts = _profiled(lambda: [run() for _ in range(reps)])
     ms_device = _per_launch_ms(kernels, symbol)
     ms = ms_device if ms_device is not None else ms_events
     library_ms = library_events = None
@@ -920,7 +1073,7 @@ def _record(rows, failures, key, symbol, runs, plains, nbytes, ops, reps, plain_
         lib()
         library_events = events_ms(lib, reps)
         # Device time of the whole call (all its kernels), as for K4.
-        _wall, lib_kernels = device_profile(lambda: [lib() for _ in range(reps)])
+        _wall, lib_kernels, _counts = _profiled(lambda: [lib() for _ in range(reps)])
         busy = sum(t for _c, t in lib_kernels.values())
         library_ms = busy / reps if lib_kernels else library_events
     abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
@@ -1488,31 +1641,56 @@ def _random_csr(n, per_row, seed=0):
     return sparse.csr_from_coo(rows, cols, rng.normal(size=len(rows)), shape=(n, n))
 
 
+def _k10_check(label, bsr, tiles, vs, packer, failures):
+    """K10 on ``vs`` against both plain versions (the tile product, the JAX
+    semantics, and the packed product on the same pack), bit for bit across
+    two runs."""
+    from lanczos_adjoints_tpu_torch.ops import fused_bsr
+
+    errs, same = {"tile": [], "packed": []}, True
+    for v in vs:
+        got = fused_bsr.bsr_spmv_rows(bsr, v, tiles, packer)
+        same &= torch.equal(got, fused_bsr.bsr_spmv_rows(bsr, v, tiles, packer))
+        errs["tile"].append(_rel_err(got, fused_bsr.bsr_spmv_plain(bsr, v, tiles)))
+        errs["packed"].append(_rel_err(got, fused_bsr.bsr_spmv_packed_plain(packer(tiles), v)))
+    torch.cuda.synchronize()
+    for plain, e in errs.items():
+        _report(f"K10 {label} vs {plain} plain ({len(vs)} vectors, worst)", max(e), TOL_BSR, failures)
+    if not same:
+        print(f"  K10 {label}: two runs differ FAIL", flush=True)
+        failures.append(f"K10 {label} bitwise")
+
+
 def phase_parity_bsr():
-    """K10 and its Function's backward (K10 for dv, the dtiles broadcast)
-    against the plain versions, on the FEM matrix, its RCM permutation and
-    a ragged rectangular matrix, 8 operand sets each."""
+    """K10 over its packed CSR view against both plain versions, and its
+    Function's backward (K10 for dv, the dtiles broadcast) against the tile
+    product's autograd, on the FEM matrix, its RCM permutation and a ragged
+    rectangular random matrix; then tiles with values off the CSR structure
+    and tiles updated in place between two calls (the cache packs again)."""
     from lanczos_adjoints_tpu_torch.ops import fused_bsr, sparse
 
-    print("[parity-bsr] K10 vs its plain version on the card", flush=True)
+    print("[parity-bsr] K10 vs its plain versions on the card", flush=True)
     failures = []
     rng = np.random.default_rng(11)
     rect = _random_csr(3001, 40)
     rect = sparse.csr_from_coo(rect.rows, rect.indices % 2777, rect.data, shape=(3001, 2777))
-    cases = [("fem", *_fem()), ("fem rcm", *_fem(rcm=True)),
+    fem = _fem()
+    cases = [("fem", *fem), ("fem rcm", *_fem(rcm=True)),
              ("random 3001x2777", rect, sparse.bsr_pack(rect, device=DEVICE), None)]
     for name, mat, bsr, tiles in cases:
         if tiles is None:
             tiles = sparse.bsr_values(bsr, mat.data, device=DEVICE)
         symmetric = mat.shape[0] == mat.shape[1]
-        errs = []
-        for _ in range(ROTATE_SETS):
-            v = _tensor(rng, mat.shape[1])
-            errs.append(_rel_err(fused_bsr.bsr_spmv_rows(bsr, v, tiles), fused_bsr.bsr_spmv_plain(bsr, v, tiles)))
-        torch.cuda.synchronize()
+        packer = fused_bsr.BsrPacker(bsr)
+        pack = packer(tiles)
         print(f"  {name}: n={mat.shape} nnz={mat.nnz} width={bsr.width} fill "
-              f"{mat.nnz / bsr.num_slots:.4f} tiles {4 * bsr.num_slots / 1e6:.1f} MB", flush=True)
-        _report(f"K10 {name} ({ROTATE_SETS} sets, worst)", max(errs), TOL_BSR, failures)
+              f"{mat.nnz / bsr.num_slots:.4f} tiles {4 * bsr.num_slots / 1e6:.1f} MB; packed view "
+              f"nnz={pack.nnz} structural={pack.structural} lanes/row "
+              f"{fused_bsr.lanes_per_row(pack.nnz, pack.n_rows)}", flush=True)
+        if pack.nnz != mat.nnz or not pack.structural:
+            failures.append(f"{name} pack")
+        _k10_check(name, bsr, tiles, [_tensor(rng, mat.shape[1]) for _ in range(ROTATE_SETS)],
+                   packer, failures)
         v, u = _tensor(rng, mat.shape[1]), _tensor(rng, mat.shape[0])
         grads = []
         for fn in (fused_bsr.bsr_matvec_fused(bsr, symmetric=symmetric), sparse.bsr_matvec_fn(bsr)):
@@ -1522,7 +1700,42 @@ def phase_parity_bsr():
         _report(f"K10 vjp dv {name} ({'K10' if symmetric else 'scatter-add'})",
                 _rel_err(grads[0][0], grads[1][0]), TOL_BSR, failures)
         _report(f"K10 vjp dtiles {name}", _rel_err(grads[0][1], grads[1][1]), TOL_BSR, failures)
-        del tiles, grads
+        del tiles, grads, pack, packer
+
+    # Values off the structure: a dense update in 1 % of every tile's slots
+    # (padded slots, padded rows and columns past the last one included).
+    mat, bsr, tiles = fem
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    update = torch.randn(tiles.shape, generator=g, device=DEVICE) * (
+        torch.rand(tiles.shape, generator=g, device=DEVICE) < 0.01)
+    updated = tiles + update
+    packer = fused_bsr.BsrPacker(bsr)
+    pack = packer(updated)
+    print(f"  fem + off-structure update: packed view nnz={pack.nnz} (structure {mat.nnz}) "
+          f"structural={pack.structural}", flush=True)
+    if pack.structural or pack.nnz <= mat.nnz:
+        failures.append("off-structure pack")
+    _k10_check("fem off-structure", bsr, updated, [_tensor(rng, mat.shape[1]) for _ in range(2)],
+               packer, failures)
+    del updated, pack, packer
+
+    # In place between two calls of one operator: the second call packs again.
+    matvec = fused_bsr.bsr_matvec_fused(bsr, symmetric=True)
+    t, v = tiles.clone(), _tensor(rng, mat.shape[1])
+    packs = fused_bsr.PACKS
+    first = matvec(v, t)
+    t.add_(update)
+    second = matvec(v, t)
+    torch.cuda.synchronize()
+    repacked = fused_bsr.PACKS - packs
+    print(f"  in-place update between two calls: packs {repacked} (2 expected)", flush=True)
+    if repacked != 2:
+        failures.append("in-place repack")
+    _report("K10 before the in-place update vs tile plain", _rel_err(first, fused_bsr.bsr_spmv_plain(bsr, v, tiles)),
+            TOL_BSR, failures)
+    _report("K10 after the in-place update vs tile plain", _rel_err(second, fused_bsr.bsr_spmv_plain(bsr, v, t)),
+            TOL_BSR, failures)
+    del t, update, fem, tiles
     if failures:
         msg = f"{len(failures)} BSR parity checks failed: {failures[:5]}"
         raise RuntimeError(msg)
@@ -1569,7 +1782,7 @@ def phase_slice_bsr():
     ``hessenberg`` at K = 90, custom adjoint and backprop; per-probe SLQ
     in the tiles; one Lanczos VJP over a HYB operator."""
     from lanczos_adjoints_tpu_torch.krylov import arnoldi, lanczos
-    from lanczos_adjoints_tpu_torch.ops import native, sparse
+    from lanczos_adjoints_tpu_torch.ops import fused_bsr, native, sparse
     from lanczos_adjoints_tpu_torch.trace import hutchinson, slq
     from lanczos_adjoints_tpu_torch.utils.timing import events_ms
 
@@ -1599,16 +1812,19 @@ def phase_slice_bsr():
     # and the cotangent K10 of each step's VJP; backprop: each step's dv.
     expected = {("lanczos", True): 2 * BSR_DEPTH, ("lanczos", False): 2 * BSR_DEPTH,
                 ("arnoldi", True): 3 * BSR_DEPTH, ("arnoldi", False): 2 * BSR_DEPTH}
-    grads, launches = {}, {}
+    # One pack of the tiles a VJP: the forward and adjoint matvecs share it.
+    grads, launches, packs = {}, {}, {}
     for key, estimate in routes.items():
         native.reset_launches()
+        fused_bsr.PACKS = 0
         grads[key] = _one_vjp(estimate, v0, tiles)
         torch.cuda.synchronize()
         launches[key] = _launches(BSR_KERNELS)["bsr_spmv"]
+        packs[key] = fused_bsr.PACKS
         finite = all(bool(torch.isfinite(g).all()) for g in grads[key])
-        ok = launches[key] == expected[key] and finite
+        ok = launches[key] == expected[key] and packs[key] == 1 and finite
         print(f"  {key[0]} {'custom' if key[1] else 'backprop'}: K10 launches per VJP {launches[key]} "
-              f"(predicted {expected[key]}); grads finite {finite} max|dv| "
+              f"(predicted {expected[key]}), packs {packs[key]} (predicted 1); grads finite {finite} max|dv| "
               f"{float(grads[key][0].abs().max()):.6e} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failures.append(f"{key} launches")
@@ -1659,14 +1875,17 @@ def phase_slice_bsr():
         return value.detach(), grad
 
     native.reset_launches()
+    fused_bsr.PACKS = 0
     value, grad = value_and_grad(lambda key: drawn.append(rademacher(key)) or drawn[-1])
     torch.cuda.synchronize()
     slq_launches = _launches(BSR_KERNELS)["bsr_spmv"]
+    slq_packs = fused_bsr.PACKS
     finite = bool(torch.isfinite(grad).all()) and bool(torch.isfinite(value))
     want = BSR_PROBES * 3 * BSR_DEPTH  # each probe: a re-orthogonalised Arnoldi VJP
-    print(f"  SLQ ({BSR_PROBES} probes, K={BSR_DEPTH}): K10 launches {slq_launches} (predicted {want}); "
-          f"value and gradient finite {finite}", flush=True)
-    if slq_launches != want or not finite:
+    print(f"  SLQ ({BSR_PROBES} probes, K={BSR_DEPTH}): K10 launches {slq_launches} (predicted {want}), "
+          f"packs {slq_packs} (predicted 1: every probe sees the same tiles); value and gradient finite "
+          f"{finite}", flush=True)
+    if slq_launches != want or slq_packs != 1 or not finite:
         failures.append("SLQ launches")
     with torch.no_grad():
         per_probe = torch.stack([lanczos.integrand_spd(torch.log, BSR_DEPTH, matvec)(v, tiles)
@@ -1704,54 +1923,140 @@ def phase_slice_bsr():
         failures.append("hyb")
     if failures:
         raise RuntimeError(f"BSR slice failed: {failures}")
-    return {"launches": launches, "vjp_ms": times, "profile": profiles, "slq_launches": slq_launches,
+    return {"launches": launches, "packs": packs, "slq_packs": slq_packs, "vjp_ms": times,
+            "profile": profiles, "slq_launches": slq_launches,
             "slq_ms": slq_ms, "slq": float(value), "exact": exact, "se": se, "hyb_ms": hyb_ms, "n": n,
             "nnz": mat.nnz}
 
 
+# Bytes read and written between two cold timed calls: 10x the 50 MB L2,
+# so that no operand of the previous call is left in it.
+FLUSH_BYTES = 512 << 20
+
+
+def _cold_ms(fn, reps, flush, symbol=None):
+    """``fn()`` with the L2 flushed before every call (``flush`` negated in
+    place, a read and a write of 10x the L2, outside the timed span): the
+    mean of CUDA events around each call, and, given the ``symbol`` of a
+    kernel of the port, that kernel's device time per launch from the
+    profiler (else None)."""
+    fn()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+
+    def timed():
+        for start, stop in pairs:
+            flush.neg_()
+            start.record()
+            fn()
+            stop.record()
+
+    timed()
+    torch.cuda.synchronize()
+    events = sum(a.elapsed_time(b) for a, b in pairs) / reps
+    if symbol is None:
+        return events, None
+    _wall, kernels, _counts = _profiled(timed)
+    return events, _per_launch_ms(kernels, symbol)
+
+
 def phase_timing_bsr(slice_run):
-    """K10's time per launch on the FEM matrix and its RCM permutation beside
-    its bound, its plain version and cuSPARSE; its kernels-line entry."""
+    """K10's time per launch on the FEM matrix and its RCM permutation, with
+    the L2 flushed before each call (cold) and with only the vector changing
+    (warm, as in the Lanczos loop), beside cuSPARSE CSR under both, the
+    bound on the work the nonzeros need, the plain version and the pack;
+    its kernels-line entry."""
     from lanczos_adjoints_tpu_torch.ops import fused_bsr
 
-    print("[timing-bsr] K10 at the slice's shapes (profiler and CUDA events); library: cuSPARSE CSR",
-          flush=True)
+    print("[timing-bsr] K10 at the slice's shapes (profiler and CUDA events), L2-cold and warm; "
+          "library: cuSPARSE CSR", flush=True)
     rows, failures = {}, []
     rng = np.random.default_rng(12)
+    flush = torch.zeros(FLUSH_BYTES // 4, device=DEVICE)
     for rcm in (False, True):
+        key = "rcm" if rcm else "fem"
         mat, bsr, tiles = _fem(rcm)
-        n = mat.shape[0]
-        # 8 vectors; the tiles (170 / 361 MB) alone are 3.4x / 7x the 50 MB L2,
-        # so every launch streams them from device memory, as on the main path.
+        n, nnz = mat.shape[0], mat.nnz
+        packer = fused_bsr.BsrPacker(bsr)
+        pack = packer(tiles)
+        # Warm: 8 vectors, one operator, as the Lanczos loop sees it.
         vs = [_tensor(rng, n) for _ in range(ROTATE_SETS)]
         csr = torch.sparse_csr_tensor(
             torch.tensor(mat.indptr, device=DEVICE), torch.tensor(mat.indices, device=DEVICE),
             torch.tensor(mat.data, dtype=torch.float32, device=DEVICE), size=mat.shape,
             check_invariants=True,
         )
-        lib_err = _rel_err(csr @ vs[0], fused_bsr.bsr_spmv_rows(bsr, vs[0], tiles))
-        print(f"  {'rcm' if rcm else 'fem'}: library CSR product vs K10: max rel err {lib_err:.3e}")
-        nbytes = 4 * (bsr.num_slots + bsr.block_cols.numel() + 2 * n)
-        _record(rows, failures, "rcm" if rcm else "fem", "bsr_spmv_kernel",
-                [lambda v=v: fused_bsr.bsr_spmv_rows(bsr, v, tiles) for v in vs],
-                [lambda v=v: fused_bsr.bsr_spmv_plain(bsr, v, tiles) for v in vs],
-                nbytes, 2 * bsr.num_slots, 48, 8, tols=(TOL_BSR,),
+        lib_err = _rel_err(csr @ vs[0], fused_bsr.bsr_spmv_packed(pack, vs[0]))
+        print(f"  {key}: library CSR product vs K10: max rel err {lib_err:.3e}", flush=True)
+        # The work the nonzeros need, the same for any format: each value and
+        # column once, the row pointers, v and out.
+        nbytes = 8 * nnz + 4 * (n + 1) + 8 * n
+        _record(rows, failures, key, "bsr_csr_spmv_kernel",
+                [lambda v=v: fused_bsr.bsr_spmv_packed(pack, v) for v in vs],
+                [lambda v=v: fused_bsr.bsr_spmv_packed_plain(pack, v) for v in vs],
+                nbytes, 2 * nnz, 48, 8, tols=(TOL_BSR,),
                 library=[lambda v=v: csr @ v for v in vs])
-        rows["rcm" if rcm else "fem"].update(n=n, nnz=mat.nnz, width=bsr.width,
-                                             tile_mb=4 * bsr.num_slots / 1e6)
-        del tiles, csr, vs
+        row = rows[key]
+        cold_events, cold_device = _cold_ms(lambda: fused_bsr.bsr_spmv_packed(pack, vs[0]), 20, flush,
+                                            "bsr_csr_spmv_kernel")
+        lib_cold, _none = _cold_ms(lambda: csr @ vs[0], 20, flush)
+        structure = fused_bsr.bsr_structure(bsr, DEVICE)
+        fused_bsr.pack_tiles(bsr, tiles, structure)
+        pack_ms = _events_ms_sync(lambda: fused_bsr.pack_tiles(bsr, tiles, structure), 5)
+        # The pack reads the tile stream once (the count off the structure),
+        # gathers each value by its int64 slot, writes it and counts it.
+        pack_bytes = 4 * bsr.num_slots + nnz * (8 + 4 + 4 + 4)
+        row.update(
+            n=n, nnz=nnz, width=bsr.width, tile_mb=4 * bsr.num_slots / 1e6, csr_mb=nbytes / 1e6,
+            ms_warm=row["ms"], library_ms_warm=row["library_ms"],
+            # Cold, like for like: CUDA events around each call for both.
+            ms_cold=cold_events, ms_cold_device=cold_device, library_ms_cold=lib_cold,
+            pack_ms=pack_ms, pack_bytes=pack_bytes, pack_bound_ms=1e3 * pack_bytes / PEAK_BYTES,
+            bound_ms_tiles=1e3 * 4 * (bsr.num_slots + bsr.block_cols.numel() + 2 * n) / PEAK_BYTES,
+        )
+        device = "not measured" if cold_device is None else f"{cold_device:.4f} ms"
+        print(f"  {key}: K10 cold {cold_events:.4f} ms by events ({device} on the device), warm "
+              f"{row['ms_warm']:.4f} ms on the device; cuSPARSE cold {lib_cold:.4f} ms by events, warm "
+              f"{row['library_ms_warm']:.4f} ms on the device; bound "
+              f"{row['bound_ms']:.4f} ms on {nbytes / 1e6:.1f} MB (the tiles' bound "
+              f"{row['bound_ms_tiles']:.4f} ms on {row['tile_mb']:.1f} MB); pack {pack_ms:.4f} ms "
+              f"(bound {row['pack_bound_ms']:.4f} ms on {pack_bytes / 1e6:.1f} MB, one host sync)",
+              flush=True)
+        del tiles, csr, vs, pack, packer, structure
+    del flush
     if failures:
         raise RuntimeError(f"K10 disagrees with its plain version in [timing-bsr]: {failures}")
     profile = slice_run["profile"]["lanczos"]
+    in_vjp = _per_launch_ms(profile["kernels"], "bsr_csr_spmv_kernel") if profile else None
+    print(f"  fem: K10 in the profiled Lanczos VJP {in_vjp if in_vjp is None else f'{in_vjp:.4f}'} ms a "
+          f"launch", flush=True)
     return {
         "name": "bsr_spmv", "route": "cuda", "source": "lanczos_adjoints_tpu_torch/csrc/bsr.cu",
         "replaces": "lanczos_adjoints_tpu/ops/pallas_bsr.py:48",
         "launches": slice_run["launches"][("lanczos", True)], **rows["fem"],
-        "ms_in_vjp": _per_launch_ms(profile["kernels"], "bsr_spmv_kernel") if profile else None,
+        "ms_in_vjp": in_vjp,
         "launches_per_vjp": {f"{k} {'custom' if cv else 'backprop'}": c
                              for (k, cv), c in slice_run["launches"].items()},
-        "launches_slq": slice_run["slq_launches"], "by_matrix": rows,
+        "packs_per_vjp": {f"{k} {'custom' if cv else 'backprop'}": c
+                          for (k, cv), c in slice_run["packs"].items()},
+        "launches_slq": slice_run["slq_launches"], "packs_slq": slice_run["slq_packs"],
+        "by_matrix": rows,
     }
+
+
+def _events_ms_sync(fn, reps):
+    """Mean ms of ``fn()`` by CUDA events where ``fn`` synchronises with the
+    host itself (the pack's count): events around each call."""
+    total = 0.0
+    for _ in range(reps):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total / reps
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,11 @@
 // fixed order, with no atomics, so the result is the same from run to
 // run. Out-of-range rows and columns are zero-filled in shared memory
 // and add uv = 0. No tensor cores, TMA or tuning yet.
+//
+// Wide rows (d > 64, a multiple of 64; D = kWide): grid.y runs over the
+// 64-column chunks of T. Each block computes the full distance chunk by
+// chunk (x and y chunks staged in turn in the same shared arrays), then
+// re-stages its own chunk for the moments; chunk 0 also writes S.
 #include <cuda_runtime.h>
 
 #include "gram_common.cuh"
@@ -43,24 +48,40 @@ template <int KIND, int D>
 __global__ void __launch_bounds__(256)
     gram_dgrads_kernel(const float* __restrict__ x, const float* __restrict__ y,
                        const float* __restrict__ v, const float* __restrict__ u,
-                       float* __restrict__ moments, int n, int n_cols, int m) {
-  constexpr int kQ = 1 + D;               // moments per row
+                       float* __restrict__ moments, int n, int n_cols, int m, int d) {
+  constexpr bool kIsWide = D == lat::kWide;
+  constexpr int DS = kIsWide ? lat::kChunk : D;  // columns held in shared memory
+  constexpr int kQ = 1 + DS;              // moments per row and block
   constexpr int kSlots = (kQ + 15) / 16;  // moments of a row kept by one lane
   __shared__ __align__(16) float us[kKC][kBR + kPad];
   __shared__ __align__(16) float vs[kKC][kBC + kPad];
-  __shared__ __align__(16) float xs[D][kBR + kPad];
-  __shared__ __align__(16) float ys[D][kBC + kPad];
+  __shared__ __align__(16) float xs[DS][kBR + kPad];
+  __shared__ __align__(16) float ys[DS][kBC + kPad];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
   const long row0 = static_cast<long>(blockIdx.x) * kBR;
+  const int chunks = kIsWide ? d / DS : 1;
+  const int own = blockIdx.y;  // the chunk of T (0 unless wide)
 
-  for (int idx = tid; idx < kBR * D; idx += 256) {
-    const int r = idx / D;
-    const int dd = idx % D;
-    xs[dd][r] = row0 + r < n ? x[row0 * D + idx] : 0.0f;
-  }
+  // Columns c * DS .. c * DS + DS of the block's x rows and of the tile's y rows.
+  auto stage_x = [&](int c) {
+    for (int idx = tid; idx < kBR * DS; idx += 256) {
+      const int r = idx / DS;
+      const int dd = idx % DS;
+      xs[dd][r] = row0 + r < n ? x[(row0 + r) * d + c * DS + dd] : 0.0f;
+    }
+  };
+  auto stage_y = [&](int c, int j0) {
+    for (int idx = tid; idx < kBC * DS; idx += 256) {
+      const int cc = idx / DS;
+      const int dd = idx % DS;
+      ys[dd][cc] = j0 + cc < n_cols ? y[static_cast<long>(j0 + cc) * d + c * DS + dd] : 0.0f;
+    }
+  };
+
+  if (!kIsWide) stage_x(0);
 
   float acc[4][kSlots];
 #pragma unroll
@@ -69,11 +90,9 @@ __global__ void __launch_bounds__(256)
     for (int s = 0; s < kSlots; ++s) acc[a][s] = 0.0f;
 
   for (int j0 = 0; j0 < n_cols; j0 += kBC) {
-    __syncthreads();  // the previous tile's ys is no longer read
-    for (int idx = tid; idx < kBC * D; idx += 256) {
-      const int c = idx / D;
-      const int dd = idx % D;
-      ys[dd][c] = j0 + c < n_cols ? y[static_cast<long>(j0) * D + idx] : 0.0f;
+    if (!kIsWide) {
+      __syncthreads();  // the previous tile's ys is no longer read
+      stage_y(0, j0);
     }
 
     float uv[4][4];
@@ -114,19 +133,32 @@ __global__ void __launch_bounds__(256)
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int b = 0; b < 4; ++b) w[a][b] = 0.0f;
+    for (int c = 0; c < chunks; ++c) {
+      if (kIsWide) {
+        __syncthreads();  // the previous chunk (or tile) is no longer read
+        stage_x(c);
+        stage_y(c, j0);
+        __syncthreads();
+      }
 #pragma unroll
-    for (int dd = 0; dd < D; ++dd) {
-      const float4 x4 = *reinterpret_cast<const float4*>(&xs[dd][ty * 4]);
-      const float4 y4 = *reinterpret_cast<const float4*>(&ys[dd][tx * 4]);
-      const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
-      const float yv[4] = {y4.x, y4.y, y4.z, y4.w};
+      for (int dd = 0; dd < DS; ++dd) {
+        const float4 x4 = *reinterpret_cast<const float4*>(&xs[dd][ty * 4]);
+        const float4 y4 = *reinterpret_cast<const float4*>(&ys[dd][tx * 4]);
+        const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+        const float yv[4] = {y4.x, y4.y, y4.z, y4.w};
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const float diff = xv[a] - yv[b];
-          w[a][b] = fmaf(diff, diff, w[a][b]);  // p, the scaled sq distance
-        }
+          for (int b = 0; b < 4; ++b) {
+            const float diff = xv[a] - yv[b];
+            w[a][b] = fmaf(diff, diff, w[a][b]);  // p, the scaled sq distance
+          }
+      }
+    }
+    if (kIsWide && own != chunks - 1) {  // this block's chunk of T
+      __syncthreads();
+      stage_y(own, j0);
+      __syncthreads();
     }
 #pragma unroll
     for (int a = 0; a < 4; ++a)
@@ -163,6 +195,7 @@ __global__ void __launch_bounds__(256)
     }
   }
 
+  // Column 0 (S) from chunk 0; chunk c's T columns at 1 + c * DS.
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const long row = row0 + ty * 4 + a;
@@ -170,23 +203,25 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
       const int q = s * 16 + tx;
-      if (q < kQ) moments[row * kQ + q] = acc[a][s];
+      if (q >= kQ || (q == 0 && own != 0)) continue;
+      moments[row * (1 + d) + (q == 0 ? 0 : 1 + own * DS + q - 1)] = acc[a][s];
     }
   }
 }
 
 template <int KIND, int D>
 void launch(const float* x, const float* y, const float* v, const float* u,
-            float* moments, int n, int n_cols, int m, cudaStream_t stream) {
-  const int blocks = (n + kBR - 1) / kBR;
+            float* moments, int n, int n_cols, int m, int d, cudaStream_t stream) {
+  const dim3 grid((n + kBR - 1) / kBR, D == lat::kWide ? d / lat::kChunk : 1);
   gram_dgrads_kernel<KIND, D>
-      <<<blocks, 256, 0, stream>>>(x, y, v, u, moments, n, n_cols, m);
+      <<<grid, 256, 0, stream>>>(x, y, v, u, moments, n, n_cols, m, d);
 }
 
 }  // namespace
 
-// x: (n, d), y: (n_cols, d), scaled and zero-padded to d columns;
-// v: (n_cols, m); u: (n, m); moments: (n, 1 + d). All float32, row-major,
+// x: (n, d), y: (n_cols, d), scaled and zero-padded to d columns (8, 16,
+// 32, 64 or a multiple of 64); v: (n_cols, m); u: (n, m); moments:
+// (n, 1 + d). All float32, row-major,
 // contiguous. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for an unsupported kind or d).
 extern "C" int lat_gram_dgrads(int kind, const float* x, const float* y,
@@ -194,7 +229,7 @@ extern "C" int lat_gram_dgrads(int kind, const float* x, const float* y,
                                int n, int n_cols, int m, int d, void* stream) {
   if (n <= 0 || n_cols <= 0 || m <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LAT_LAUNCH(K, DD) launch<K, DD>(x, y, v, u, moments, n, n_cols, m, s)
+#define LAT_LAUNCH(K, DD) launch<K, DD>(x, y, v, u, moments, n, n_cols, m, d, s)
   LAT_DISPATCH_KIND_D(kind, d, LAT_LAUNCH)
 #undef LAT_LAUNCH
   return cudaGetLastError();

@@ -27,7 +27,8 @@ from lanczos_adjoints_tpu_torch.krylov import arnoldi
 from lanczos_adjoints_tpu_torch.ops import fused_dia, native
 from lanczos_adjoints_tpu_torch.ops.fused_lanczos import guarded_div
 
-ARNOLDI_FORWARD = native.Kernel("arnoldi_dia_forward", "arnoldi_dia", "lat_arnoldi_dia_forward")
+ARNOLDI_FORWARD = native.Kernel("arnoldi_dia_forward", "arnoldi_dia", "lat_arnoldi_dia_forward",
+                                device_symbol="arnoldi_forward_kernel")
 LANES = 128  # the JAX kernel's lane width, kept for its n % 128 rule
 
 

@@ -26,11 +26,12 @@ import torch
 
 from lanczos_adjoints_tpu_torch.ops import native
 
-DIA_MATVEC = native.Kernel("dia_matvec", "dia", "lat_dia_matvec")
+DIA_MATVEC = native.Kernel("dia_matvec", "dia", "lat_dia_matvec", device_symbol="dia_matvec_kernel")
 # The same C entry point, launched on the transposed operator: counted
 # apart so that a run can show when the cotangent of v was computed.
-DIA_MATVEC_T = native.Kernel("dia_matvec_transposed", "dia", "lat_dia_matvec")
-DIA_DVALS = native.Kernel("dia_dvals", "dia", "lat_dia_dvals")
+DIA_MATVEC_T = native.Kernel("dia_matvec_transposed", "dia", "lat_dia_matvec",
+                            device_symbol="dia_matvec_kernel")
+DIA_DVALS = native.Kernel("dia_dvals", "dia", "lat_dia_dvals", device_symbol="dia_dvals_kernel")
 LANES, SUBLANES = 128, 8  # the JAX kernel's tiling, kept for its n % 1024 rule
 
 

@@ -14,7 +14,9 @@ parametrisation, ``models.gp``):
 
 All take rows scaled by ``sqrt(pscale) / lengthscale`` (``PSCALE`` folds
 the family's distance factor into the data) and zero-padded to a width
-in ``WIDTHS``; ``outputscale`` multiplies the O(N) output. A wrapper
+(``padded_width``: 8, 16, 32 or 64, or a multiple of 64 above 64, which
+the kernels take in chunks of 64 columns); ``outputscale`` multiplies
+the O(N) output. A wrapper
 launches its kernel for CUDA tensors and runs the plain PyTorch version
 of the same arithmetic for CPU tensors; there is no other path.
 
@@ -36,25 +38,66 @@ from lanczos_adjoints_tpu_torch.ops import native
 
 PSCALE = {"rbf": 0.5, "matern12": 1.0, "matern32": 3.0}
 _KIND_ID = {"rbf": 0, "matern12": 1, "matern32": 2}
-WIDTHS = (8, 16, 32, 64)
+WIDTHS = (8, 16, 32, 64)  # the narrow widths; wider rows pad to a multiple of CHUNK
+CHUNK = 64
 _EPS = float(torch.finfo(torch.float32).eps)
 # Cells per row chunk of the plain versions (bounds their memory).
 _PLAIN_CELLS = 1 << 26
 _VALUES_UNUSED = contextvars.ContextVar("fused_gram_values_unused", default=False)
 
 
-GRAM_MATVEC = native.Kernel("gram_matvec", "gram_matvec", "lat_gram_matvec")
-GRAM_GRADS = native.Kernel("gram_grads", "gram_grads", "lat_gram_grads")
-GRAM_DGRADS = native.Kernel("gram_dgrads", "gram_dgrads", "lat_gram_dgrads")
+GRAM_MATVEC = native.Kernel("gram_matvec", "gram_matvec", "lat_gram_matvec",
+                            device_symbol="gram_matvec_kernel")
+GRAM_GRADS = native.Kernel("gram_grads", "gram_grads", "lat_gram_grads",
+                           device_symbol="gram_grads_kernel")
+GRAM_DGRADS = native.Kernel("gram_dgrads", "gram_dgrads", "lat_gram_dgrads",
+                            device_symbol="gram_dgrads_kernel")
 _GRADS_BLOCK_ROWS = 64  # rows per K2 block: kBR in csrc/gram_grads.cu
+# K1 (csrc/gram_matvec.cu): rows a block, and blocks an SM holds at once.
+K1_ROWS = 128
+K1_BLOCKS_PER_SM = 4
+# The column split takes at most this many segments, each at least this
+# many columns long.
+_SPLIT_MAX = 8
+_SPLIT_MIN_COLS = 2048
 
 
 def padded_width(d: int) -> int:
+    """The kernel width for ``d`` input dimensions: 8, 16, 32 or 64, or the
+    next multiple of 64 above 64 (as the JAX package pads any d)."""
     for width in WIDTHS:
         if d <= width:
             return width
-    msg = f"d={d} exceeds the widest fused Gram kernel (d <= {WIDTHS[-1]})"
-    raise ValueError(msg)
+    return -(-d // CHUNK) * CHUNK
+
+
+def _width_ok(width: int) -> bool:
+    return width in WIDTHS or (width > CHUNK and width % CHUNK == 0)
+
+
+def column_splits(n_rows: int, n_cols: int, sms: int) -> int:
+    """Column segments S of one K1 launch, so that its blocks fill the card.
+
+    The card holds ``K1_BLOCKS_PER_SM * sms`` blocks at once; a launch of
+    B row blocks runs in waves of that many, and a short last wave leaves
+    SMs idle. With fewer than four waves, S is the smallest count of
+    segments (at most ``_SPLIT_MAX``, each at least ``_SPLIT_MIN_COLS``
+    columns) whose B * S blocks fill their last wave best. The segments'
+    partial products are summed in a fixed order in the same launch.
+    1 means no split.
+    """
+    blocks = -(-n_rows // K1_ROWS)
+    slots = K1_BLOCKS_PER_SM * sms
+    if blocks >= 4 * slots:
+        return 1
+
+    def fill(s):
+        waves = blocks * s / slots
+        return waves / math.ceil(waves)
+
+    most = max(1, min(_SPLIT_MAX, n_cols // _SPLIT_MIN_COLS))
+    best = max(fill(s) for s in range(1, most + 1))
+    return min(s for s in range(1, most + 1) if fill(s) >= best - 1e-9)
 
 
 def kernel_rows(arr, lengthscale, kind: str):
@@ -189,16 +232,26 @@ def gram_matvec_rows(kind, xs, ys, v2):
     device = _check(kind, xs, ys, v2)
     n, width = xs.shape
     n_cols, m = v2.shape
-    if ys.shape != (n_cols, width) or width not in WIDTHS:
+    if ys.shape != (n_cols, width) or not _width_ok(width):
         msg = f"shape mismatch: xs {tuple(xs.shape)}, ys {tuple(ys.shape)}, v {tuple(v2.shape)}"
         raise ValueError(msg)
     if device.type == "cpu":
         return gram_matvec_plain(kind, xs, ys, v2)
+    # The kernel stages rows by 16-byte copies.
+    xs, ys = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (xs, ys))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits = column_splits(n, n_cols, sms)
     out = torch.empty((n, m), dtype=torch.float32, device=device)
+    partials = counters = None
+    if splits > 1:
+        partials = torch.empty((splits, n, m), dtype=torch.float32, device=device)
+        counters = torch.zeros(-(-n // K1_ROWS), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         GRAM_MATVEC.launch(
-            _KIND_ID[kind], xs.data_ptr(), ys.data_ptr(), v2.data_ptr(),
-            out.data_ptr(), n, n_cols, m, width, native.stream(device),
+            _KIND_ID[kind], xs.data_ptr(), ys.data_ptr(), v2.data_ptr(), out.data_ptr(),
+            0 if partials is None else partials.data_ptr(),
+            0 if counters is None else counters.data_ptr(),
+            n, n_cols, m, width, splits, native.stream(device),
         )
     return out
 
@@ -213,7 +266,7 @@ def gram_grads_rows(kind, xs, ys, v2, u2):
     device = _check(kind, xs, ys, v2, u2)
     n, width = xs.shape
     n_cols, m = v2.shape
-    if ys.shape != (n_cols, width) or u2.shape != (n, m) or width not in WIDTHS:
+    if ys.shape != (n_cols, width) or u2.shape != (n, m) or not _width_ok(width):
         msg = (
             f"shape mismatch: xs {tuple(xs.shape)}, ys {tuple(ys.shape)}, "
             f"v {tuple(v2.shape)}, u {tuple(u2.shape)}"
@@ -260,7 +313,7 @@ def gram_dgrads_rows(kind, xs, ys, v2, u2):
     device = _check(kind, xs, ys, v2, u2)
     n, width = xs.shape
     n_cols, m = v2.shape
-    if ys.shape != (n_cols, width) or u2.shape != (n, m) or width not in WIDTHS:
+    if ys.shape != (n_cols, width) or u2.shape != (n, m) or not _width_ok(width):
         msg = (
             f"shape mismatch: xs {tuple(xs.shape)}, ys {tuple(ys.shape)}, "
             f"v {tuple(v2.shape)}, u {tuple(u2.shape)}"

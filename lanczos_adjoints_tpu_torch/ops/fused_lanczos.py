@@ -22,8 +22,10 @@ import torch
 
 from lanczos_adjoints_tpu_torch.ops import fused_dia, native
 
-LANCZOS_FORWARD = native.Kernel("lanczos_dia_forward", "lanczos_dia", "lat_lanczos_dia_forward")
-LANCZOS_ADJOINT = native.Kernel("lanczos_dia_adjoint", "lanczos_dia", "lat_lanczos_dia_adjoint")
+LANCZOS_FORWARD = native.Kernel("lanczos_dia_forward", "lanczos_dia", "lat_lanczos_dia_forward",
+                                device_symbol="lanczos_forward_kernel")
+LANCZOS_ADJOINT = native.Kernel("lanczos_dia_adjoint", "lanczos_dia", "lat_lanczos_dia_adjoint",
+                                device_symbol="lanczos_adjoint_kernel")
 LANES = 128  # the JAX kernel's lane width, kept for its n % 128 rule
 # Floats of per-block partials the wrappers allocate: three slots of up
 # to 8,192 blocks, well above the co-resident blocks of one card.

@@ -9,7 +9,9 @@ The build happens at the first launch of a kernel (or on
 
 ``Kernel`` binds one C entry point and counts its launches; every
 kernel the package defines is registered in ``KERNELS``, the one place
-a run reads its launch counts from.
+a run reads its launch counts from. ``device_symbol`` is the part of the
+``__global__`` function's name that a profiler's kernel names contain,
+so that a run can hold the profiler's count to the registry's.
 """
 
 import ctypes
@@ -46,7 +48,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # Every C entry point returns a cudaError_t as int (0 = success).
 _SIGNATURES = {
-    "gram_matvec": {"lat_gram_matvec": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P)},
+    "gram_matvec": {"lat_gram_matvec": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)},
     "gram_grads": {"lat_gram_grads": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)},
     "gram_dgrads": {"lat_gram_dgrads": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)},
     "dia": {
@@ -65,7 +67,7 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P,
         ),
     },
-    "bsr": {"lat_bsr_spmv": (_P, _P, _P, _P, _I, _I, _I, _I, _P)},
+    "bsr": {"lat_bsr_spmv": (_P, _P, _P, _P, _P, _I, _I, _P)},
     "halo_dia": {
         "lat_halo_dia_matvec": (
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, ctypes.c_uint, _P,
@@ -171,13 +173,14 @@ class Kernel:
     reported as accepted.
     """
 
-    def __init__(self, name: str, source: str, symbol: str):
+    def __init__(self, name: str, source: str, symbol: str, *, device_symbol: str | None = None):
         if name in KERNELS:
             msg = f"kernel {name!r} is registered twice"
             raise ValueError(msg)
         self.name = name
         self.source = source
         self.symbol = symbol
+        self.device_symbol = device_symbol
         self.launches = 0
         KERNELS[name] = self
 
@@ -194,6 +197,10 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict:
     return {name: kernel.launches for name, kernel in KERNELS.items()}
+
+
+def device_symbols() -> dict:
+    return {name: kernel.device_symbol for name, kernel in KERNELS.items()}
 
 
 def stream(device) -> int:

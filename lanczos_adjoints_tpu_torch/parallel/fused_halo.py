@@ -34,10 +34,12 @@ import torch
 
 from lanczos_adjoints_tpu_torch.ops import fused_dia, native
 
-HALO_DIA = native.Kernel("halo_dia_matvec", "halo_dia", "lat_halo_dia_matvec")
+HALO_DIA = native.Kernel("halo_dia_matvec", "halo_dia", "lat_halo_dia_matvec",
+                         device_symbol="halo_dia_kernel")
 # The same C entry point on the transposed operator (the non-symmetric
 # VJP of ``parallel.sharded.sharded_dia_operator``): counted apart.
-HALO_DIA_T = native.Kernel("halo_dia_matvec_transposed", "halo_dia", "lat_halo_dia_matvec")
+HALO_DIA_T = native.Kernel("halo_dia_matvec_transposed", "halo_dia", "lat_halo_dia_matvec",
+                           device_symbol="halo_dia_kernel")
 LANES, SUBLANES = 128, 8  # the JAX kernel's tiling, kept for its errors
 
 

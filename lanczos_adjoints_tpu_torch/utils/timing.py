@@ -43,3 +43,28 @@ def device_profile(fn):
             count, total = kernels.get(event.name, (0, 0.0))
             kernels[event.name] = (count + 1, total + event.time_range.elapsed_us() / 1e3)
     return wall_ms, kernels
+
+
+def launch_report(kernels, launched, symbols):
+    """The profiler's launch counts beside the registry's, by device symbol.
+
+    ``kernels`` is ``device_profile``'s ``{name: (count, device_ms)}``,
+    ``launched`` the registry's launches in the same run (``{kernel:
+    count}``) and ``symbols`` each kernel's device symbol
+    (``ops.native.device_symbols()``). Kernels sharing a symbol (a matvec
+    and its transpose) are summed. Returns ``{symbol: (seen, launched)}``
+    for every symbol launched or seen, and the symbols where the two
+    differ; where the profiler saw fewer, its busy time is a lower bound
+    and its idle share an upper bound.
+    """
+    rows = {}
+    for name, symbol in symbols.items():
+        if symbol is not None:
+            rows[symbol] = rows.get(symbol, 0) + launched.get(name, 0)
+    report = {}
+    for symbol, count in rows.items():
+        seen = sum(c for name, (c, _ms) in kernels.items() if symbol in name)
+        if seen or count:
+            report[symbol] = (seen, count)
+    mismatches = sorted(s for s, (seen, count) in report.items() if seen != count)
+    return report, mismatches

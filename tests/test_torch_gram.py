@@ -150,8 +150,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         fused_gram.gram_matvec_rows("rbf", meta, meta, torch.zeros((5, 2), device="meta"))
     with pytest.raises(ValueError, match="shape"):
         fused_gram.gram_matvec_rows("rbf", xs, torch.zeros((4, 8)), v)
-    with pytest.raises(ValueError, match="exceeds"):
-        fused_gram.kernel_rows(torch.zeros((3, 65)), torch.tensor(1.0), "rbf")
+    # A width above 64 pads to the next multiple of 64; an unpadded one is refused.
+    rows = fused_gram.kernel_rows(torch.ones((3, 65)), torch.tensor(1.0), "rbf")
+    assert rows.shape == (3, 128) and bool((rows[:, 65:] == 0).all())
+    with pytest.raises(ValueError, match="shape"):
+        fused_gram.gram_matvec_rows("rbf", torch.zeros((5, 65)), torch.zeros((5, 65)), v)
     with pytest.raises(ValueError, match="not supported"):
         fused_gram.gram_matvec_fused("cauchy")
 
