@@ -12,9 +12,10 @@ Phases, in order:
      runs), against their plain PyTorch versions on the card, for rbf /
      matern12 / matern32, d in {1, 8, 12, 40, 65, 130} (the last two
      wide rows in chunks of 64), scalar and ARD lengthscales, K1 at m in
-     {1, 15, 40} and K2 at m in {1, 225}, ragged row counts; K1's short
-     transcendentals entry by entry from p = 0 to distances of ~30; K1
-     with its column split at 50,000 x 400,000 (the first 4,096 rows);
+     {1, 15, 40} and K2 at m in {1, 8, 15, 225, 400}, ragged row counts;
+     K1's short transcendentals entry by entry from p = 0 to distances of
+     ~30; K1 with its column split at 50,000 x 400,000 (the first 4,096
+     rows);
   4. the oracle: at N = 2,048 the Krylov marginal likelihood against a
      dense Cholesky one, and its gradient through the kernels against
      the gradient through the plain versions;
@@ -238,6 +239,7 @@ def phase_parity(device="cuda", rows=(3001, 2777), kinds=("rbf", "matern12", "ma
     print("[parity] kernels vs plain versions on the card", flush=True)
     failures = []
     rng = np.random.default_rng(0)
+    restaged_rng = np.random.default_rng(400)
     n, n_cols = rows
     for kind in kinds:
         for d in dims:
@@ -272,9 +274,15 @@ def phase_parity(device="cuda", rows=(3001, 2777), kinds=("rbf", "matern12", "ma
                     torch.cuda.synchronize()
                     for name, a, b in zip(("dv", "dell", "dout"), *grads):
                         _report(f"K1 vjp {name} {tag} m={m}", _rel_err(a, b), TOL_K2, failures)
-                for m in (1, 225):
-                    v = torch.tensor(rng.standard_normal((n_cols, m)), dtype=torch.float32, device=device)
-                    u = torch.tensor(rng.standard_normal((n, m)), dtype=torch.float32, device=device)
+                # K2: m = 1 (no contraction), one k-step, a per-probe width, the
+                # SLQ adjoint's width (ragged against the 8-wide k-steps), and a
+                # width whose U rows do not fit in shared memory (re-staged),
+                # drawn from its own generator so that the other cases' inputs
+                # do not depend on it.
+                for m in (1, 8, 15, 225, 400):
+                    gen = restaged_rng if m == 400 else rng
+                    v = torch.tensor(gen.standard_normal((n_cols, m)), dtype=torch.float32, device=device)
+                    u = torch.tensor(gen.standard_normal((n, m)), dtype=torch.float32, device=device)
                     got = fg.gram_grads_rows(kind, xs, ys, v, u)
                     again = fg.gram_grads_rows(kind, xs, ys, v, u)
                     want = fg.gram_grads_plain(kind, xs, ys, v, u)
@@ -596,18 +604,21 @@ def _cell_ops(kernel, m, d=8):
     """(fp32 operations, contraction operations) per cell: distance 3d,
     Matern-3/2 value 5 (K1), value and derivative plus the weighted sums
     5d + 9 (K2) or the derivative and the moments 5d + 10 (K3); the
-    contraction 2m. K2 and K3 contract on the fp32 pipes, so their second
-    number is 0 and the first holds it."""
-    if kernel == "K1":
-        return 3 * d + 5, 2 * m
-    return 2 * m + {"K2": 5 * d + 9, "K3": 5 * d + 10}[kernel], 0
+    contraction 2m. K1, and K2 for m > 1, contract on the tensor cores
+    (3xTF32); K2 at m = 1 (one multiply a cell) and K3 on the fp32 pipes,
+    so their second number is 0 and the first holds it."""
+    fp32 = {"K1": 3 * d + 5, "K2": 5 * d + 9, "K3": 5 * d + 10}[kernel]
+    if kernel == "K1" or (kernel == "K2" and m > 1):
+        return fp32, 2 * m
+    return 2 * m + fp32, 0
 
 
 def _gram_bound(kernel, cells, m, nbytes):
     """The least time for the work, whatever implements it: the larger of
-    the fp32 operations at 67 TFLOP/s, K1's contraction at the 3xTF32 rate
-    and the bytes at 3.35 TB/s; and the all-fp32 bound (every operation at the
-    fp32 rate), printed beside it so that earlier rows stay comparable."""
+    the fp32 operations at 67 TFLOP/s, the tensor-core contraction (K1; K2
+    for m > 1) at the 3xTF32 rate and the bytes at 3.35 TB/s; and the
+    all-fp32 bound (every operation at the fp32 rate), printed beside it
+    so that earlier rows stay comparable."""
     fp32_ops, mma_ops = _cell_ops(kernel, m)
     ops = max(cells * fp32_ops / PEAK_FLOPS_FP32, cells * mma_ops / PEAK_FLOPS_3XTF32)
     old = 1e3 * max(cells * (fp32_ops + mma_ops) / PEAK_FLOPS_FP32, nbytes / PEAK_BYTES)
@@ -641,7 +652,7 @@ def phase_timing(n, slice_counts, dgrads_counts, split_rows=50_000):
             elif kernel == "K2":
                 run = lambda: fg.gram_grads_rows("matern32", xs, xs, v, u)  # noqa: E731
                 plain = lambda: fg.gram_grads_plain("matern32", xs, xs, v, u)  # noqa: E731
-                nbytes = 4 * (2 * n * 8 + 2 * n * m + (n // 64 + 1) * 9)
+                nbytes = 4 * (2 * n * 8 + 2 * n * m + -(-n // fg._GRADS_BLOCK_ROWS) * 9)
             else:
                 run = lambda: fg.gram_dgrads_rows("matern32", xs, xs, v, u)  # noqa: E731
                 plain = lambda: fg.gram_dgrads_plain("matern32", xs, xs, v, u)  # noqa: E731
@@ -687,7 +698,8 @@ def phase_timing(n, slice_counts, dgrads_counts, split_rows=50_000):
             "launches_per_step": [c[idx] for c in counts["per_step"]],
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None,
+            "bound_by": main["bound_by"], "bound_ms_all_fp32": main["bound_ms_all_fp32"],
+            "library_ms": None,
             "n": n, "m": main_m,
             "by_m": [shapes[(kernel, m)] for m in kinds[kernel]],
         }

@@ -24,7 +24,8 @@
 //   they sum one tile of columns and the tiles are added in fp32.
 // - Short transcendentals: ex2.approx on the argument pre-scaled by
 //   log2 e, sqrt.approx for the Matern distance (a few ulp, far inside
-//   the 1e-4 gate). K2 and K3 keep the full-precision kernel_value_dsq.
+//   the 1e-4 gate). K2 takes them too; K3 keeps the full-precision
+//   kernel_value_dsq.
 // - Distances are direct differences for every d (free of cancellation),
 //   accumulated over the row's columns in order.
 // - d = 8 and 16 keep the block's x rows in registers (2 m-tiles of 16
@@ -46,6 +47,7 @@
 #include <stdint.h>
 
 #include "gram_common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -54,17 +56,14 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kBlocksPerSM = 4;  // K1_BLOCKS_PER_SM in ops/fused_gram.py
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float sqrt_approx(float x) {
-  float y;
-  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+using lat::cp_async16;
+using lat::cp_async4;
+using lat::cp_async_commit;
+using lat::cp_async_wait;
+using lat::ex2_approx;
+using lat::mma_3xtf32;
+using lat::split_tf32;
+using lat::sqrt_approx;
 
 // g(p) of the families in gram_common.cuh (ops/fused_gram.py kernel_value), with the
 // short transcendentals.
@@ -75,29 +74,6 @@ __device__ __forceinline__ float kernel_value_fast(float p) {
   const float e = ex2_approx(-kLog2e * dist);
   if (KIND == lat::kMatern12) return e;
   return fmaf(dist, e, e);  // (1 + dist) e
-}
-
-// x = hi + lo with hi a TF32 value; the tensor core reads only lo's TF32 bits.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b at fp32 accuracy; b = (b0 hi, b1 hi, b0 lo, b1 lo). The small
-// terms go first.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ahi)[4],
-                                           const uint32_t (&alo)[4], const uint4& b) {
-  mma_tf32(c, alo, b.x, b.y);
-  mma_tf32(c, ahi, b.z, b.w);
-  mma_tf32(c, ahi, b.x, b.y);
 }
 
 template <int R, int NT>
@@ -130,29 +106,6 @@ __device__ __forceinline__ void a_fragment(const float (&p)[4], uint32_t (&hi)[4
                                            uint32_t (&lo)[4]) {
 #pragma unroll
   for (int q = 0; q < 4; ++q) split_tf32(kernel_value_fast<KIND>(p[q]), hi[q], lo[q]);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s), "l"(gmem),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // The tile's v columns (TC x 8 NT values from load(j, c)) as B fragments

@@ -52,7 +52,7 @@ GRAM_GRADS = native.Kernel("gram_grads", "gram_grads", "lat_gram_grads",
                            device_symbol="gram_grads_kernel")
 GRAM_DGRADS = native.Kernel("gram_dgrads", "gram_dgrads", "lat_gram_dgrads",
                             device_symbol="gram_dgrads_kernel")
-_GRADS_BLOCK_ROWS = 64  # rows per K2 block: kBR in csrc/gram_grads.cu
+_GRADS_BLOCK_ROWS = 128  # rows per K2 block: kRows in csrc/gram_grads.cu
 # K1 (csrc/gram_matvec.cu): rows a block, and blocks an SM holds at once.
 K1_ROWS = 128
 K1_BLOCKS_PER_SM = 4
@@ -256,10 +256,20 @@ def gram_matvec_rows(kind, xs, ys, v2):
     return out
 
 
+def grads_operands(v2, u2):
+    """``v2``, ``u2`` as K2 takes them: for m > 1, m in multiples of 4, so
+    they get zero columns, which add uv = 0."""
+    m = v2.shape[1]
+    if m == 1 or m % 4 == 0:
+        return v2, u2
+    pad = (0, -m % 4)
+    return torch.nn.functional.pad(v2, pad), torch.nn.functional.pad(u2, pad)
+
+
 def gram_grads_rows(kind, xs, ys, v2, u2):
     """K2 on prepared rows -> the (1 + D,) totals (see ``gram_grads_plain``).
 
-    On the card the kernel writes one partial row per block of 64 rows;
+    On the card the kernel writes one partial row per block of 128 rows;
     they are summed here by one fixed-order reduction, so the result does
     not change from run to run.
     """
@@ -274,6 +284,10 @@ def gram_grads_rows(kind, xs, ys, v2, u2):
         raise ValueError(msg)
     if device.type == "cpu":
         return gram_grads_plain(kind, xs, ys, v2, u2)
+    # The kernel stages rows and u, v by 16-byte copies.
+    v2, u2 = grads_operands(v2, u2)
+    m = v2.shape[1]
+    xs, ys, v2, u2 = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (xs, ys, v2, u2))
     blocks = -(-n // _GRADS_BLOCK_ROWS)
     partials = torch.empty((blocks, 1 + width), dtype=torch.float32, device=device)
     with torch.cuda.device(device):

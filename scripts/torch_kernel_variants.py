@@ -1,7 +1,8 @@
-"""Time design variants of the port's K1 and K10 kernels side by side on one GPU.
+"""Time design variants of the port's K1, K2 and K10 kernels side by side on one GPU.
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc:
-``python3 scripts/torch_kernel_variants.py``. Each variant is the
+``python3 scripts/torch_kernel_variants.py [--only k1,k2,k10] [--parent DIR]``
+(all three kernels unless ``--only`` names some). Each variant is the
 kernel's source under ``lanczos_adjoints_tpu_torch/csrc/`` with one
 constant replaced, compiled into its own library in a temporary
 directory; the package's own build is left alone. It prints each
@@ -13,19 +14,36 @@ variant's register count and time beside the chosen one's:
 - K10 (``bsr.cu``): 1, 2 (the kernel) or 4 float4 loads in flight a lane,
   at 4, 8 and 16 lanes a row, on the FEM test matrix (grid 24), device
   time from the profiler with 8 rotating vectors (warm) and with the L2
-  flushed before each call (cold), beside cuSPARSE CSR under both.
+  flushed before each call (cold), beside cuSPARSE CSR under both;
+- K2 (``gram_grads.cu``): the kernel (12 warps, U resident), U re-staged
+  per tile, 16 warps a block, 8 warps (two blocks an SM with U re-staged,
+  one with U resident), the epilogue in one pass over a warp's 4 n-tiles
+  instead of two of 2, 3 pipeline stages, the full-precision
+  transcendentals (expf, sqrtf) and 64 rows a block, at N = M = 400,000, d = 8,
+  matern32, m = 1 and 225, CUDA events with the SM clock, each result
+  held to the plain version on the first 2,048 rows; with the registers,
+  stack and spill bytes of every instantiation (``-Xptxas -v``). The
+  variants compile in parallel.
+
+``--breakdown`` times K2 at m = 225 instead with parts of its work cut
+out (the epilogue; then also the V copies, the contraction, both, or the
+TF32 split), to show where its time goes.
 
 ``--parent DIR`` (a checkout of an earlier commit, e.g. unpacked by
-``git archive``) also builds that commit's ``gram_matvec.cu`` and
-``bsr.cu`` and times them against this tree's on the same card, in the
-order parent, this, this, parent.
+``git archive``) also builds that commit's ``gram_matvec.cu``,
+``gram_grads.cu`` and ``bsr.cu`` (those of the kernels selected) and
+times them against this tree's on the same card, in the order parent,
+this, this, parent.
 """
 
+import argparse
 import ctypes
 import itertools
+import re
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -137,19 +155,215 @@ def k10_variants(tmp):
           flush=True)
 
 
+_KINDS = ("rbf", "matern12", "matern32")
+_K2_ENTRY = re.compile(r"gram_grads_kernelILi(\d+)ELi(\d+)ELb([01])E")
+
+
+def k2_ptxas(report):
+    """``[(instantiation, registers, stack, spill stores, spill loads)]`` of
+    each K2 kernel in an ``nvcc -Xptxas -v`` report."""
+    rows, current, frame = [], None, (0, 0, 0)
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            match = _K2_ENTRY.search(line)
+            current = None
+            if match:
+                kind, width, one = int(match[1]), int(match[2]), match[3] == "1"
+                current = f"{_KINDS[kind]} d={width or 'wide'} {'m=1' if one else 'm>1'}"
+            frame = (0, 0, 0)
+        elif current and "bytes stack frame" in line:
+            frame = tuple(int(v) for v in re.findall(r"(\d+) bytes", line)[:3])
+        elif current and "Used" in line and "registers" in line:
+            rows.append((current, int(re.search(r"Used (\d+) registers", line)[1]), *frame))
+            current = None
+    return rows
+
+
+def build_parallel(jobs):
+    """``{label: (source path, workdir)}`` compiled together, one nvcc each ->
+    ``{label: (library, ptxas report)}``."""
+    procs = {}
+    for label, (source, workdir) in jobs.items():
+        lib = workdir / "lib.so"
+        procs[label] = (subprocess.Popen([native._nvcc(), *native.FLAGS, "-o", str(lib), str(source)],
+                                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    built = {}
+    for label, (proc, lib) in procs.items():
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{label}: nvcc failed\n{report}")
+        built[label] = (ctypes.CDLL(str(lib)), report)
+    return built
+
+
+def edited_source(source, edits, workdir):
+    """``source`` with each ``(old, new)`` replaced, and the headers, in ``workdir``."""
+    text = (native.CSRC / source).read_text()
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError(f"{source}: {old!r} not found")
+        text = text.replace(old, new)
+    workdir.mkdir(parents=True, exist_ok=True)
+    for header in native.CSRC.glob("*.cuh"):
+        (workdir / header.name).write_text(header.read_text())
+    (workdir / source).write_text(text)
+    return workdir / source
+
+
+def k2_runner(fn, rows_per_block, xs, ys, v, u, pad=True):
+    """A closure that launches one K2 library's ``lat_gram_grads`` (matern32)
+    and returns its (1 + D,) totals; ``pad`` widens u and v to a multiple
+    of 4 columns, as the wrapper does for this tree's kernel."""
+    fn.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+    if v.shape[1] > 1 and v.shape[1] % 4 and pad:  # as gram_grads_rows pads for the kernel
+        v, u = (torch.nn.functional.pad(a, (0, -v.shape[1] % 4)) for a in (v, u))
+    n, width = xs.shape
+    part = torch.empty((-(-n // rows_per_block), 1 + width), device="cuda")
+
+    def run():
+        native.check(fn(2, xs.data_ptr(), ys.data_ptr(), v.data_ptr(), u.data_ptr(), part.data_ptr(), n,
+                        ys.shape[0], v.shape[1], width, torch.cuda.current_stream().cuda_stream), "K2")
+        return part.sum(dim=0)
+
+    return run
+
+
+def _k2_data(n):
+    g = torch.Generator(device="cuda").manual_seed(2)
+    xs = fg.kernel_rows(torch.randn((n, 8), generator=g, device="cuda"),
+                        torch.full((8,), 0.9, device="cuda"), "matern32")
+    data = {m: (torch.randn((n, m), generator=g, device="cuda"), torch.randn((n, m), generator=g, device="cuda"))
+            for m in (1, 225)}
+    check_rows = 2048
+    want = {m: fg.gram_grads_plain("matern32", xs[:check_rows], xs, v, u[:check_rows])
+            for m, (v, u) in data.items()}
+    return xs, data, want, check_rows
+
+
+def k2_variants(tmp, n=400_000):
+    xs, data, want, check_rows = _k2_data(n)
+    restage = ("kResidentU = true;", "kResidentU = false;")
+    variants = {
+        "the kernel": (128, []),
+        "U re-staged per tile": (128, [restage]),
+        "16 warps a block (128 x 128 tiles)": (128, [("kWarps = 12;", "kWarps = 16;")]),
+        "8 warps a block, 2 blocks an SM, U re-staged": (128, [("kWarps = 12;", "kWarps = 8;"),
+                                                                ("kBlocksPerSM = 1;", "kBlocksPerSM = 2;"), restage]),
+        "8 warps a block, U resident": (128, [("kWarps = 12;", "kWarps = 8;")]),
+        "one epilogue pass over the 4 n-tiles": (128, [("kNH = 2;", "kNH = 4;")]),
+        "3 stages": (128, [("kStages = 2;", "kStages = 3;")]),
+        "full-precision transcendentals": (128, [("kFastMath = true;", "kFastMath = false;")]),
+        "64 rows a block": (64, [("constexpr int kR = 2; ", "constexpr int kR = 1; ")]),
+    }
+    jobs = {label: (edited_source("gram_grads.cu", edits, tmp / f"k2_{i}"), tmp / f"k2_{i}")
+            for i, (label, (_rows, edits)) in enumerate(variants.items())}
+    start = time.perf_counter()
+    built = build_parallel(jobs)
+    print(f"K2: {len(built)} variants compiled in {time.perf_counter() - start:.1f} s", flush=True)
+    for label, (rows, _edits) in variants.items():
+        lib, report = built[label]
+        table = k2_ptxas(report)
+        shown = table if label == "the kernel" else [r for r in table if r[0].startswith(("matern32 d=8 ",
+                                                                                            "matern32 d=64 "))]
+        print(f"K2 {label}: " + "; ".join(f"{name} {regs} registers, stack {stack} B, spill {st}/{ld} B"
+                                         for name, regs, stack, st, ld in shown), flush=True)
+        if label == "the kernel":
+            spills = [r[0] for r in table if (r[3] or r[4]) and "wide" not in r[0]]
+            print(f"  instantiations with spills at d <= 64: {spills or 'none'}", flush=True)
+        for m, (v, u) in data.items():
+            got = k2_runner(lib.lat_gram_grads, rows, xs[:check_rows], xs, v, u[:check_rows])()
+            err = cs._rel_err(got, want[m])
+            run = k2_runner(lib.lat_gram_grads, rows, xs, xs, v, u)
+            run()
+            ms, clocks = cs._events_ms_clocked(run, 2)
+            print(f"  {n} x {n} m={m}: {ms:.3f} ms (SM clock, max, power, temperature {clocks}); "
+                  f"rel err {err:.2e} on the first {check_rows} rows", flush=True)
+
+
+# Where K2's time goes at m = 225: the kernel with parts of its work cut
+# out (results are not the function's; only the times mean something).
+_NO_EPILOGUE = [("kernel_values<KIND>(p[r][nh][q], gv, dg);", "gv = p[r][nh][q]; dg = 1.0f;"),
+                ("dims_pass<DS, true>(xs, ys, wr, wch, g, t, p, tsum + tid, wsum + warp * (1 + DS), lane);", "")]
+_NO_COPIES = [("      if (resident) stage_chunk(nullptr, v_buf(it), kRows, kRows + kCols, j0, k0);\n"
+               "      else stage_chunk(u_buf(it), v_buf(it), 0, kRows + kCols, j0, k0);\n", "")]
+_NO_CONTRACTION = [("          if (kp >= m) break;", "          if (kp >= 0) break;")]
+_NO_SPLIT = [("for (int q = 0; q < 4; ++q) lat::split_tf32(a[st][q], ahi[st][r][q], alo[st][r][q]);",
+              "for (int q = 0; q < 4; ++q) ahi[st][r][q] = alo[st][r][q] = __float_as_uint(a[st][q]);"),
+             ("              lat::split_tf32(b[st][0], h0, l0);\n              lat::split_tf32(b[st][1], h1, l1);",
+              "              h0 = l0 = __float_as_uint(b[st][0]);\n              h1 = l1 = __float_as_uint(b[st][1]);")]
+
+
+def k2_breakdown(tmp, n=400_000, m=225):
+    """K2 at N = M = 400,000, d = 8, m = 225 with parts of its work removed."""
+    xs, data, _want, _rows = _k2_data(n)
+    v, u = data[m]
+    cuts = {
+        "the kernel": [],
+        "no epilogue (values and sums)": _NO_EPILOGUE,
+        "no epilogue, no V copies": _NO_EPILOGUE + _NO_COPIES,
+        "no epilogue, no contraction": _NO_EPILOGUE + _NO_CONTRACTION,
+        "no epilogue, no V copies, no contraction": _NO_EPILOGUE + _NO_COPIES + _NO_CONTRACTION,
+        "no epilogue, no TF32 split": _NO_EPILOGUE + _NO_SPLIT,
+    }
+    jobs = {label: (edited_source("gram_grads.cu", edits, tmp / f"k2_cut_{i}"), tmp / f"k2_cut_{i}")
+            for i, (label, edits) in enumerate(cuts.items())}
+    for label, (lib, _report) in build_parallel(jobs).items():
+        run = k2_runner(lib.lat_gram_grads, 128, xs, xs, v, u)
+        run()
+        ms, clocks = cs._events_ms_clocked(run, 1)
+        print(f"K2 breakdown m={m}, {label}: {ms:.3f} ms ({clocks})", flush=True)
+
+
+def k2_parent(tmp, parent, n=400_000):
+    """K2 at N = M = 400,000, d = 8, m = 1 and 225: the parent's kernel
+    (64 rows a block) and this tree's wrapper, parent, this, this, parent."""
+    xs, data, want, check_rows = _k2_data(n)
+    old = build_parent(parent, "gram_grads.cu", tmp / "parent_k2").lat_gram_grads
+    for m, (v, u) in data.items():
+        runs = {"parent": k2_runner(old, 64, xs, xs, v, u, pad=False),
+                "this": lambda v=v, u=u: fg.gram_grads_rows("matern32", xs, xs, v, u)}
+        errs = {"parent": cs._rel_err(k2_runner(old, 64, xs[:check_rows], xs, v, u[:check_rows], pad=False)(),
+                                      want[m]),
+                "this": cs._rel_err(fg.gram_grads_rows("matern32", xs[:check_rows], xs, v, u[:check_rows]),
+                                    want[m])}
+        for label in ("parent", "this"):
+            runs[label]()
+        times = []
+        for label in ("parent", "this", "this", "parent"):
+            ms, clocks = cs._events_ms_clocked(runs[label], 1 if m > 1 else 2)
+            times.append(f"{label} {ms:.3f} ms ({clocks})")
+        print(f"K2 {n} x {n} m={m}: " + ", ".join(times) + "; rel err on the first "
+              f"{check_rows} rows: parent {errs['parent']:.2e}, this {errs['this']:.2e}", flush=True)
+
+
 def build_parent(parent, source, workdir):
     """The parent commit's ``source``, compiled and loaded."""
     csrc = parent / "lanczos_adjoints_tpu_torch" / "csrc"
+    workdir.mkdir(parents=True, exist_ok=True)
     lib = workdir / "lib.so"
     subprocess.run([native._nvcc(), *native.FLAGS, "-o", str(lib), str(csrc / source)],
                    capture_output=True, text=True, check=True)
     return ctypes.CDLL(str(lib))
 
 
+def _arity(source, symbol):
+    """The number of parameters of the C entry point ``symbol`` in ``source``."""
+    text = source.read_text()
+    params = text[text.index(symbol + "(") + len(symbol) + 1:]
+    return params[:params.index(")")].count(",") + 1
+
+
 def parent_comparison(tmp, parent, n=400_000):
     """K1 at N = M = 400,000 (m = 1, 15) and K10 on the FEM matrix (warm and
     cold): the parent's kernels and this tree's, parent, this, this, parent."""
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    csrc = parent / "lanczos_adjoints_tpu_torch" / "csrc"
+    arity = {name: _arity(csrc / f"{name}.cu", symbol)
+             for name, symbol in (("gram_matvec", "lat_gram_matvec"), ("bsr", "lat_bsr_spmv"))}
+    if arity != {"gram_matvec": 10, "bsr": 9}:
+        print(f"K1/K10 parent comparison skipped: it calls the tile-stream C interfaces (10 and 9 "
+              f"arguments), the parent's take {arity}", flush=True)
+        return
     old_k1 = build_parent(parent, "gram_matvec.cu", tmp / "parent_k1").lat_gram_matvec
     old_k1.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P]
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -195,6 +409,15 @@ def parent_comparison(tmp, parent, n=400_000):
 
 
 def main(argv) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", default="k1,k2,k10", help="comma-separated kernels: k1, k2, k10")
+    parser.add_argument("--parent", type=Path, help="a tree of an earlier commit to time against")
+    parser.add_argument("--breakdown", action="store_true",
+                        help="K2 only: time the kernel with parts of its work removed")
+    args = parser.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= {"k1", "k2", "k10"}:
+        parser.error(f"--only takes k1, k2, k10, got {args.only!r}")
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device", file=sys.stderr)
         return 2
@@ -202,12 +425,21 @@ def main(argv) -> int:
     pin_float32()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        for sub in ("k1_0", "k1_1", "k10_1", "k10_2", "k10_4", "parent_k1", "parent_k10"):
+        for sub in ("k1_0", "k1_1", "k10_1", "k10_2", "k10_4"):
             (tmp / sub).mkdir()
-        if len(argv) == 2 and argv[0] == "--parent":
-            parent_comparison(tmp, Path(argv[1]))
-        k1_variants(tmp)
-        k10_variants(tmp)
+        if args.parent is not None:
+            if "k2" in only:
+                k2_parent(tmp, args.parent)
+            if only & {"k1", "k10"}:
+                parent_comparison(tmp, args.parent)
+        if args.breakdown:
+            k2_breakdown(tmp)
+        elif "k2" in only:
+            k2_variants(tmp)
+        if "k1" in only:
+            k1_variants(tmp)
+        if "k10" in only:
+            k10_variants(tmp)
     return 0
 
 

@@ -106,6 +106,23 @@ def test_param_grads_match_jax_wide(kind):
     _assert_close(d_out_t, d_out_j, _TOL[kind])
 
 
+
+@pytest.mark.parametrize("m", [9, 225])
+@pytest.mark.parametrize("kind", ["rbf", "matern12", "matern32"])
+def test_param_grads_match_jax_at_the_main_path_widths(kind, m):
+    """K2's plain version at m = 9 (one 8-wide k-step and a ragged one) and
+    m = 225 (the blocked SLQ adjoint's 15 x 15 probes, ragged against 8),
+    d = 8 with ARD lengthscales, against the JAX kernel."""
+    a = _inputs(8, m, True, seed=2)
+    d_ell_j, d_out_j = _jax_done(pallas_gram._param_grads(
+        kind, jax.lax.Precision.HIGHEST, a["x"], a["y"], a["v"], a["u"], a["ell"], a["out"]
+    ))
+    d_ell_t, d_out_t = fused_gram.param_grads(
+        kind, *(torch.tensor(a[k]) for k in ("x", "y", "v", "u", "ell", "out"))
+    )
+    _assert_close(d_ell_t, d_ell_j, _TOL[kind])
+    _assert_close(d_out_t, d_out_j, _TOL[kind])
+
 def test_backward_skips_dv_when_v_needs_no_gradient(monkeypatch):
     """The wide parameter VJP must not run K1 for dv."""
     calls = []

@@ -1,8 +1,9 @@
 """Planning and measurement helpers of the port that need no card.
 
-K1's column split (``fused_gram.column_splits``) and the report that
-holds a profiler's launch counts to the kernel registry's
-(``utils.timing.launch_report``), on a fake profiler table.
+K1's column split (``fused_gram.column_splits``), the report that holds
+a profiler's launch counts to the kernel registry's
+(``utils.timing.launch_report``), on a fake profiler table, and the Gram
+kernels' bounds as ``chip_smoke.py`` computes them.
 """
 
 import pytest
@@ -52,3 +53,57 @@ def test_launch_report_is_empty_when_nothing_ran_and_counts_unseen_launches():
     assert launch_report({}, {"bsr_spmv": 0}, _SYMBOLS) == ({}, [])
     report, mismatches = launch_report({}, {"gram_matvec": 2}, _SYMBOLS)
     assert report == {"gram_matvec_kernel": (0, 2)} and mismatches == ["gram_matvec_kernel"]
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it imports no CUDA at module level)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_bounds", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize(
+    ("kernel", "m", "bound_ms", "all_fp32_ms"),
+    [
+        ("K2", 225, 436.4, 1191.6),  # the contraction at the 3xTF32 rate
+        ("K2", 1, 121.8, 121.8),  # one multiply a cell, on the fp32 pipes
+        ("K1", 15, 69.3, 140.9),
+        ("K1", 1, 69.3, 74.0),
+        ("K3", 225, 1194.0, 1194.0),  # K3 still contracts on the fp32 pipes
+        ("K3", 1, 124.2, 124.2),
+    ],
+)
+def test_gram_bounds_at_n_400k(kernel, m, bound_ms, all_fp32_ms):
+    """The Gram kernels' bounds at N = M = 400,000, d = 8, as ``[timing]``
+    computes them: bound by operations, the all-fp32 bound beside it."""
+    cs = _chip_smoke()
+    n = 400_000
+    nbytes = 4 * (2 * n * 8 + 2 * n * m + -(-n // fused_gram._GRADS_BLOCK_ROWS) * 9)
+    got, by, all_fp32 = cs._gram_bound(kernel, n * n, m, nbytes)
+    assert by == "operations"
+    assert round(got, 1) == bound_ms
+    assert round(all_fp32, 1) == all_fp32_ms
+
+
+@pytest.mark.parametrize("m", [1, 8, 15, 225])
+def test_k2_operands_pad_m_with_zero_columns(m):
+    """K2 takes m = 1 or m in multiples of 4: the zero columns that the
+    wrapper adds leave the plain totals as they were."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(3)
+    xs, ys = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32) for shape in ((37, 8), (29, 8)))
+    v2, u2 = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32) for shape in ((29, m), (37, m)))
+    pv, pu = fused_gram.grads_operands(v2, u2)
+    assert pv.shape[1] == pu.shape[1] == (m if m == 1 else -(-m // 4) * 4)
+    assert torch.equal(pv[:, :m], v2) and torch.equal(pu[:, :m], u2)
+    assert not pv[:, m:].any() and not pu[:, m:].any()
+    want = fused_gram.gram_grads_plain("matern32", xs, ys, v2, u2)
+    torch.testing.assert_close(fused_gram.gram_grads_plain("matern32", xs, ys, pv, pu), want,
+                               rtol=1e-6, atol=1e-6 * float(want.abs().max()))
