@@ -62,9 +62,10 @@ Phases, in order:
      adjoint gradient against backprop, then three Adam steps;
  14. K9's time per launch beside its bound and plain version;
  15. K3 parity (``csrc/gram_dgrads.cu``): the data-gradient moments
-     against their plain version at [parity]'s rows and widths, bit for bit across
-     two runs, and the Function's x and y gradients against autograd
-     through the plain matvec (run after phase 5);
+     against their plain version at [parity]'s rows and widths, m in
+     {1, 8, 15, 225, 400}, bit for bit across two runs, and the
+     Function's x and y gradients against autograd through the plain
+     matvec (run after phase 5);
  16. the input-gradient slice: at N = 2,048 the gradient in the
      parameters and the training inputs through the kernels against the
      plain policy, then one step at N_train = 400,000 with its launches
@@ -478,13 +479,17 @@ def phase_slice(n_train, steps):
 def phase_parity_dgrads(rows=(3001, 2777), kinds=("rbf", "matern12", "matern32"),
                         dims=(1, 8, 12, 40, 65, 130)):
     """K3 against its plain version at [parity]'s rows, bit for bit across
-    two runs; the Function's x and y gradients (K3 twice) against autograd
-    through the plain matvec."""
+    two runs, at m = 1 (no contraction), 8 (one k-step), 15 (padded to 16
+    by the wrapper), 225 (the SLQ adjoint's width) and 400 (U re-staged);
+    the Function's x and y gradients (K3 twice) against autograd through
+    the plain matvec. The cases m = 8, 15 and 400 draw from their own
+    generator, so that the other checks keep their inputs."""
     from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
 
     print("[parity-dgrads] K3 vs its plain version on the card", flush=True)
     failures = []
     rng = np.random.default_rng(10)
+    extra_rng = np.random.default_rng(11)
     n, n_cols = rows
     for kind in kinds:
         tol = TOL_K3[kind]
@@ -493,8 +498,9 @@ def phase_parity_dgrads(rows=(3001, 2777), kinds=("rbf", "matern12", "matern32")
             ell = torch.tensor(rng.uniform(0.5, 2.0, d) * _wide_scale(d), dtype=torch.float32,
                                device=DEVICE)
             xs, ys = fg.kernel_rows(x, ell, kind), fg.kernel_rows(y, ell, kind)
-            for m in (1, 225):
-                v, u = _tensor(rng, (n_cols, m)), _tensor(rng, (n, m))
+            for m in (1, 8, 15, 225, 400):
+                gen = rng if m in (1, 225) else extra_rng
+                v, u = _tensor(gen, (n_cols, m)), _tensor(gen, (n, m))
                 got = fg.gram_dgrads_rows(kind, xs, ys, v, u)
                 again = fg.gram_dgrads_rows(kind, xs, ys, v, u)
                 want = fg.gram_dgrads_plain(kind, xs, ys, v, u)
@@ -604,11 +610,11 @@ def _cell_ops(kernel, m, d=8):
     """(fp32 operations, contraction operations) per cell: distance 3d,
     Matern-3/2 value 5 (K1), value and derivative plus the weighted sums
     5d + 9 (K2) or the derivative and the moments 5d + 10 (K3); the
-    contraction 2m. K1, and K2 for m > 1, contract on the tensor cores
-    (3xTF32); K2 at m = 1 (one multiply a cell) and K3 on the fp32 pipes,
-    so their second number is 0 and the first holds it."""
+    contraction 2m. K1, and K2 and K3 for m > 1, contract on the tensor
+    cores (3xTF32); K2 and K3 at m = 1 multiply once a cell on the fp32
+    pipes, so their second number is 0 and the first holds it."""
     fp32 = {"K1": 3 * d + 5, "K2": 5 * d + 9, "K3": 5 * d + 10}[kernel]
-    if kernel == "K1" or (kernel == "K2" and m > 1):
+    if kernel == "K1" or m > 1:
         return fp32, 2 * m
     return 2 * m + fp32, 0
 
@@ -616,7 +622,7 @@ def _cell_ops(kernel, m, d=8):
 def _gram_bound(kernel, cells, m, nbytes):
     """The least time for the work, whatever implements it: the larger of
     the fp32 operations at 67 TFLOP/s, the tensor-core contraction (K1; K2
-    for m > 1) at the 3xTF32 rate and the bytes at 3.35 TB/s; and the
+    and K3 for m > 1) at the 3xTF32 rate and the bytes at 3.35 TB/s; and the
     all-fp32 bound (every operation at the fp32 rate), printed beside it
     so that earlier rows stay comparable."""
     fp32_ops, mma_ops = _cell_ops(kernel, m)

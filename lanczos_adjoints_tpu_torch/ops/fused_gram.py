@@ -257,8 +257,8 @@ def gram_matvec_rows(kind, xs, ys, v2):
 
 
 def grads_operands(v2, u2):
-    """``v2``, ``u2`` as K2 takes them: for m > 1, m in multiples of 4, so
-    they get zero columns, which add uv = 0."""
+    """``v2``, ``u2`` as K2 and K3 take them: for m > 1, m in multiples of
+    4, so they get zero columns, which add uv = 0."""
     m = v2.shape[1]
     if m == 1 or m % 4 == 0:
         return v2, u2
@@ -335,6 +335,10 @@ def gram_dgrads_rows(kind, xs, ys, v2, u2):
         raise ValueError(msg)
     if device.type == "cpu":
         return gram_dgrads_plain(kind, xs, ys, v2, u2)
+    # The kernel stages rows and u, v by 16-byte copies.
+    v2, u2 = grads_operands(v2, u2)
+    m = v2.shape[1]
+    xs, ys, v2, u2 = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (xs, ys, v2, u2))
     moments = torch.empty((n, 1 + width), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         GRAM_DGRADS.launch(

@@ -1,8 +1,8 @@
-"""Time design variants of the port's K1, K2 and K10 kernels side by side on one GPU.
+"""Time design variants of the port's K1, K2, K3 and K10 kernels side by side on one GPU.
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc:
-``python3 scripts/torch_kernel_variants.py [--only k1,k2,k10] [--parent DIR]``
-(all three kernels unless ``--only`` names some). Each variant is the
+``python3 scripts/torch_kernel_variants.py [--only k1,k2,k3,k10] [--parent DIR]``
+(all four kernels unless ``--only`` names some). Each variant is the
 kernel's source under ``lanczos_adjoints_tpu_torch/csrc/`` with one
 constant replaced, compiled into its own library in a temporary
 directory; the package's own build is left alone. It prints each
@@ -23,17 +23,23 @@ variant's register count and time beside the chosen one's:
   matern32, m = 1 and 225, CUDA events with the SM clock, each result
   held to the plain version on the first 2,048 rows; with the registers,
   stack and spill bytes of every instantiation (``-Xptxas -v``). The
-  variants compile in parallel.
+  variants compile in parallel;
+- K3 (``gram_dgrads.cu``): the kernel (U resident) and U re-staged per
+  tile, at the same shapes as K2, each result held to the plain version
+  on the first 2,048 rows, with the registers, stack and spill bytes of
+  every instantiation.
 
-``--breakdown`` times K2 at m = 225 instead with parts of its work cut
-out (the epilogue; then also the V copies, the contraction, both, or the
-TF32 split), to show where its time goes.
+``--breakdown`` times K2 at m = 225 and K3 at m = 1 and 225 instead of
+their variants, with parts of their work cut out (K3's moments; the
+epilogue; then also the V copies, the contraction, both, or the TF32
+split), to show where their time goes.
 
 ``--parent DIR`` (a checkout of an earlier commit, e.g. unpacked by
 ``git archive``) also builds that commit's ``gram_matvec.cu``,
-``gram_grads.cu`` and ``bsr.cu`` (those of the kernels selected) and
-times them against this tree's on the same card, in the order parent,
-this, this, parent.
+``gram_grads.cu``, ``gram_dgrads.cu`` and ``bsr.cu`` (those of the
+kernels selected) and times them against this tree's on the same card,
+in the order parent, this, this, parent. The parent's K2 and K3 get m
+unpadded.
 """
 
 import argparse
@@ -156,16 +162,17 @@ def k10_variants(tmp):
 
 
 _KINDS = ("rbf", "matern12", "matern32")
-_K2_ENTRY = re.compile(r"gram_grads_kernelILi(\d+)ELi(\d+)ELb([01])E")
 
 
-def k2_ptxas(report):
+def ptxas_table(report, kernel="gram_grads_kernel"):
     """``[(instantiation, registers, stack, spill stores, spill loads)]`` of
-    each K2 kernel in an ``nvcc -Xptxas -v`` report."""
+    each instantiation of the Gram kernel ``kernel`` (K2's or K3's) in an
+    ``nvcc -Xptxas -v`` report."""
+    entry = re.compile(kernel + r"ILi(\d+)ELi(\d+)ELb([01])E")
     rows, current, frame = [], None, (0, 0, 0)
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            match = _K2_ENTRY.search(line)
+            match = entry.search(line)
             current = None
             if match:
                 kind, width, one = int(match[1]), int(match[2]), match[3] == "1"
@@ -228,20 +235,21 @@ def k2_runner(fn, rows_per_block, xs, ys, v, u, pad=True):
     return run
 
 
-def _k2_data(n):
+def _gram_data(n, plain=fg.gram_grads_plain):
+    """Rows, (v, u) at m = 1 and 225, and ``plain`` (K2's or K3's plain
+    version) on the first rows, at N = M = n, d = 8, matern32."""
     g = torch.Generator(device="cuda").manual_seed(2)
     xs = fg.kernel_rows(torch.randn((n, 8), generator=g, device="cuda"),
                         torch.full((8,), 0.9, device="cuda"), "matern32")
     data = {m: (torch.randn((n, m), generator=g, device="cuda"), torch.randn((n, m), generator=g, device="cuda"))
             for m in (1, 225)}
     check_rows = 2048
-    want = {m: fg.gram_grads_plain("matern32", xs[:check_rows], xs, v, u[:check_rows])
-            for m, (v, u) in data.items()}
+    want = {m: plain("matern32", xs[:check_rows], xs, v, u[:check_rows]) for m, (v, u) in data.items()}
     return xs, data, want, check_rows
 
 
 def k2_variants(tmp, n=400_000):
-    xs, data, want, check_rows = _k2_data(n)
+    xs, data, want, check_rows = _gram_data(n)
     restage = ("kResidentU = true;", "kResidentU = false;")
     variants = {
         "the kernel": (128, []),
@@ -262,7 +270,7 @@ def k2_variants(tmp, n=400_000):
     print(f"K2: {len(built)} variants compiled in {time.perf_counter() - start:.1f} s", flush=True)
     for label, (rows, _edits) in variants.items():
         lib, report = built[label]
-        table = k2_ptxas(report)
+        table = ptxas_table(report)
         shown = table if label == "the kernel" else [r for r in table if r[0].startswith(("matern32 d=8 ",
                                                                                             "matern32 d=64 "))]
         print(f"K2 {label}: " + "; ".join(f"{name} {regs} registers, stack {stack} B, spill {st}/{ld} B"
@@ -280,10 +288,17 @@ def k2_variants(tmp, n=400_000):
                   f"rel err {err:.2e} on the first {check_rows} rows", flush=True)
 
 
-# Where K2's time goes at m = 225: the kernel with parts of its work cut
+# Where K2's and K3's time goes: the kernel with parts of its work cut
 # out (results are not the function's; only the times mean something).
 _NO_EPILOGUE = [("kernel_values<KIND>(p[r][nh][q], gv, dg);", "gv = p[r][nh][q]; dg = 1.0f;"),
                 ("dims_pass<DS, true>(xs, ys, wr, wch, g, t, p, tsum + tid, wsum + warp * (1 + DS), lane);", "")]
+# K3: the moments replaced by one sum of the tile's w (which keeps the
+# contraction live); then also no distances and no dg.
+_K3_NO_MOMENTS = [("    moments_pass<DS>(ys, wc, t, acc, add);",
+                   "    { float s = 0.0f; for (const auto& a : acc) for (const auto& b : a) for (float c : b) s += c;"
+                   " add(0, s); }")]
+_K3_NO_EPILOGUE = _K3_NO_MOMENTS + [("        distances<DS>(xs, ys, wr, wch, g, t, p);", ""),
+                                    ("            cell *= kernel_dsq<KIND>(p[r][nh][q]);", "")]
 _NO_COPIES = [("      if (resident) stage_chunk(nullptr, v_buf(it), kRows, kRows + kCols, j0, k0);\n"
                "      else stage_chunk(u_buf(it), v_buf(it), 0, kRows + kCols, j0, k0);\n", "")]
 _NO_CONTRACTION = [("          if (kp >= m) break;", "          if (kp >= 0) break;")]
@@ -293,31 +308,43 @@ _NO_SPLIT = [("for (int q = 0; q < 4; ++q) lat::split_tf32(a[st][q], ahi[st][r][
               "              h0 = l0 = __float_as_uint(b[st][0]);\n              h1 = l1 = __float_as_uint(b[st][1]);")]
 
 
-def k2_breakdown(tmp, n=400_000, m=225):
-    """K2 at N = M = 400,000, d = 8, m = 225 with parts of its work removed."""
-    xs, data, _want, _rows = _k2_data(n)
-    v, u = data[m]
-    cuts = {
-        "the kernel": [],
-        "no epilogue (values and sums)": _NO_EPILOGUE,
-        "no epilogue, no V copies": _NO_EPILOGUE + _NO_COPIES,
-        "no epilogue, no contraction": _NO_EPILOGUE + _NO_CONTRACTION,
-        "no epilogue, no V copies, no contraction": _NO_EPILOGUE + _NO_COPIES + _NO_CONTRACTION,
-        "no epilogue, no TF32 split": _NO_EPILOGUE + _NO_SPLIT,
+def breakdown(tmp, kernel, n=400_000):
+    """K2 at m = 225, or K3 at m = 1 and 225, at N = M = 400,000, d = 8
+    with parts of its work removed."""
+    xs, data, _want, _rows = _gram_data(n)
+    if kernel == "k2":
+        source, ms_, epilogue = "gram_grads.cu", (225,), _NO_EPILOGUE
+        cuts = {"the kernel": [], "no epilogue (values and sums)": epilogue}
+        runner = lambda lib, v, u: k2_runner(lib.lat_gram_grads, 128, xs, xs, v, u)  # noqa: E731
+    else:
+        source, ms_, epilogue = "gram_dgrads.cu", (1, 225), _K3_NO_EPILOGUE
+        cuts = {"the kernel": [], "no moments": _K3_NO_MOMENTS, "no epilogue (distances, dg and moments)": epilogue}
+        runner = lambda lib, v, u: k3_runner(lib.lat_gram_dgrads, xs, xs, v, u)  # noqa: E731
+    contraction = {
+        "no epilogue, no V copies": epilogue + _NO_COPIES,
+        "no epilogue, no contraction": epilogue + _NO_CONTRACTION,
+        "no epilogue, no V copies, no contraction": epilogue + _NO_COPIES + _NO_CONTRACTION,
+        "no epilogue, no TF32 split": epilogue + _NO_SPLIT,
     }
-    jobs = {label: (edited_source("gram_grads.cu", edits, tmp / f"k2_cut_{i}"), tmp / f"k2_cut_{i}")
+    cuts.update(contraction)
+    jobs = {label: (edited_source(source, edits, tmp / f"{kernel}_cut_{i}"), tmp / f"{kernel}_cut_{i}")
             for i, (label, edits) in enumerate(cuts.items())}
-    for label, (lib, _report) in build_parallel(jobs).items():
-        run = k2_runner(lib.lat_gram_grads, 128, xs, xs, v, u)
-        run()
-        ms, clocks = cs._events_ms_clocked(run, 1)
-        print(f"K2 breakdown m={m}, {label}: {ms:.3f} ms ({clocks})", flush=True)
+    built = build_parallel(jobs)
+    for m in ms_:
+        v, u = data[m]
+        for label, (lib, _report) in built.items():
+            if m == 1 and label in contraction:  # m = 1 has no copies and no contraction
+                continue
+            run = runner(lib, v, u)
+            run()
+            ms, clocks = cs._events_ms_clocked(run, 1)
+            print(f"{kernel.upper()} breakdown m={m}, {label}: {ms:.3f} ms ({clocks})", flush=True)
 
 
 def k2_parent(tmp, parent, n=400_000):
     """K2 at N = M = 400,000, d = 8, m = 1 and 225: the parent's kernel
     (64 rows a block) and this tree's wrapper, parent, this, this, parent."""
-    xs, data, want, check_rows = _k2_data(n)
+    xs, data, want, check_rows = _gram_data(n)
     old = build_parent(parent, "gram_grads.cu", tmp / "parent_k2").lat_gram_grads
     for m, (v, u) in data.items():
         runs = {"parent": k2_runner(old, 64, xs, xs, v, u, pad=False),
@@ -333,6 +360,74 @@ def k2_parent(tmp, parent, n=400_000):
             ms, clocks = cs._events_ms_clocked(runs[label], 1 if m > 1 else 2)
             times.append(f"{label} {ms:.3f} ms ({clocks})")
         print(f"K2 {n} x {n} m={m}: " + ", ".join(times) + "; rel err on the first "
+              f"{check_rows} rows: parent {errs['parent']:.2e}, this {errs['this']:.2e}", flush=True)
+
+
+def k3_runner(fn, xs, ys, v, u, pad=True):
+    """A closure that launches one K3 library's ``lat_gram_dgrads``
+    (matern32) and returns its (n, 1 + D) moments; ``pad`` widens u and v
+    to a multiple of 4 columns, as the wrapper does for this tree's kernel."""
+    fn.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+    if pad:
+        v, u = fg.grads_operands(v, u)
+    n, width = xs.shape
+    out = torch.empty((n, 1 + width), device="cuda")
+
+    def run():
+        native.check(fn(2, xs.data_ptr(), ys.data_ptr(), v.data_ptr(), u.data_ptr(), out.data_ptr(), n,
+                        ys.shape[0], v.shape[1], width, torch.cuda.current_stream().cuda_stream), "K3")
+        return out
+
+    return run
+
+
+def k3_variants(tmp, n=400_000):
+    """K3 as built (U resident) and with U re-staged per tile, at N = M =
+    400,000, d = 8, matern32, m = 1 and 225; the registers, stack and
+    spill of every instantiation."""
+    xs, data, want, check_rows = _gram_data(n, fg.gram_dgrads_plain)
+    variants = {"the kernel": [], "U re-staged per tile": [("kResidentU = true;", "kResidentU = false;")]}
+    jobs = {label: (edited_source("gram_dgrads.cu", edits, tmp / f"k3_{i}"), tmp / f"k3_{i}")
+            for i, (label, edits) in enumerate(variants.items())}
+    start = time.perf_counter()
+    built = build_parallel(jobs)
+    print(f"K3: {len(built)} variants compiled in {time.perf_counter() - start:.1f} s", flush=True)
+    for label, (lib, report) in built.items():
+        table = ptxas_table(report, "gram_dgrads_kernel")
+        print(f"K3 {label}: {len(table)} instantiations: " + "; ".join(
+            f"{name} {regs} registers, stack {stack} B, spill {st}/{ld} B" for name, regs, stack, st, ld in table),
+            flush=True)
+        spills = [r[0] for r in table if r[2] or r[3] or r[4]]
+        print(f"  instantiations with stack or spills: {spills or 'none'}", flush=True)
+        for m, (v, u) in data.items():
+            got = k3_runner(lib.lat_gram_dgrads, xs[:check_rows], xs, v, u[:check_rows])()
+            err = cs._rel_err(got, want[m])
+            run = k3_runner(lib.lat_gram_dgrads, xs, xs, v, u)
+            run()
+            ms, clocks = cs._events_ms_clocked(run, 1 if m > 1 else 2)
+            print(f"  {n} x {n} m={m}: {ms:.3f} ms (SM clock, max, power, temperature {clocks}); "
+                  f"rel err {err:.2e} on the first {check_rows} rows", flush=True)
+
+
+def k3_parent(tmp, parent, n=400_000):
+    """K3 at N = M = 400,000, d = 8, matern32, m = 1 and 225: the parent's
+    kernel (m unpadded) and this tree's wrapper, parent, this, this, parent."""
+    xs, data, want, check_rows = _gram_data(n, fg.gram_dgrads_plain)
+    old = build_parent(parent, "gram_dgrads.cu", tmp / "parent_k3").lat_gram_dgrads
+    for m, (v, u) in data.items():
+        runs = {"parent": k3_runner(old, xs, xs, v, u, pad=False),
+                "this": lambda v=v, u=u: fg.gram_dgrads_rows("matern32", xs, xs, v, u)}
+        errs = {"parent": cs._rel_err(k3_runner(old, xs[:check_rows], xs, v, u[:check_rows], pad=False)(),
+                                      want[m]),
+                "this": cs._rel_err(fg.gram_dgrads_rows("matern32", xs[:check_rows], xs, v, u[:check_rows]),
+                                    want[m])}
+        for label in ("parent", "this"):
+            runs[label]()
+        times = []
+        for label in ("parent", "this", "this", "parent"):
+            ms, clocks = cs._events_ms_clocked(runs[label], 1 if m > 1 else 2)
+            times.append(f"{label} {ms:.3f} ms ({clocks})")
+        print(f"K3 {n} x {n} m={m}: " + ", ".join(times) + "; rel err on the first "
               f"{check_rows} rows: parent {errs['parent']:.2e}, this {errs['this']:.2e}", flush=True)
 
 
@@ -410,14 +505,14 @@ def parent_comparison(tmp, parent, n=400_000):
 
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", default="k1,k2,k10", help="comma-separated kernels: k1, k2, k10")
+    parser.add_argument("--only", default="k1,k2,k3,k10", help="comma-separated kernels: k1, k2, k3, k10")
     parser.add_argument("--parent", type=Path, help="a tree of an earlier commit to time against")
     parser.add_argument("--breakdown", action="store_true",
-                        help="K2 only: time the kernel with parts of its work removed")
+                        help="K2 and K3: time the kernel with parts of its work removed")
     args = parser.parse_args(argv)
     only = set(args.only.split(","))
-    if not only <= {"k1", "k2", "k10"}:
-        parser.error(f"--only takes k1, k2, k10, got {args.only!r}")
+    if not only <= {"k1", "k2", "k3", "k10"}:
+        parser.error(f"--only takes k1, k2, k3, k10, got {args.only!r}")
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device", file=sys.stderr)
         return 2
@@ -430,12 +525,19 @@ def main(argv) -> int:
         if args.parent is not None:
             if "k2" in only:
                 k2_parent(tmp, args.parent)
+            if "k3" in only:
+                k3_parent(tmp, args.parent)
             if only & {"k1", "k10"}:
                 parent_comparison(tmp, args.parent)
         if args.breakdown:
-            k2_breakdown(tmp)
-        elif "k2" in only:
-            k2_variants(tmp)
+            for kernel in ("k2", "k3"):
+                if kernel in only:
+                    breakdown(tmp, kernel)
+        else:
+            if "k2" in only:
+                k2_variants(tmp)
+            if "k3" in only:
+                k3_variants(tmp)
         if "k1" in only:
             k1_variants(tmp)
         if "k10" in only:

@@ -96,6 +96,30 @@ def test_data_grad_matches_jax(kind, d, m, symmetric):
     assert _rel(dy_t, dy_j) < 10 * _TOL[kind]
 
 
+@pytest.mark.parametrize("m", [9, 225])
+@pytest.mark.parametrize("kind", ["rbf", "matern12", "matern32"])
+def test_data_grad_matches_jax_at_the_main_path_widths(kind, m):
+    """K3's plain version at m = 9 (one 8-wide k-step and a ragged one,
+    padded to 12 on the card) and m = 225 (the blocked SLQ adjoint's
+    15 x 15 probes), d = 8 with ARD lengthscales and x = y, as in the GP
+    step, against the JAX kernel: dx and dy, at the file's data-gradient
+    tolerance (matern12's diagonal cancels, pallas_gram.py:635-641)."""
+    a = _inputs(8, m, True, seed=3)
+    args = {k: jnp.asarray(v) for k, v in a.items()}
+    prec = jax.lax.Precision.HIGHEST
+    dx_j = np.asarray(pallas_gram._data_grad(
+        kind, prec, args["x"], args["y"], args["v"], args["u"], args["ell"], args["out"]))
+    dy_j = np.asarray(pallas_gram._data_grad(
+        kind, prec, args["y"], args["x"], args["u"], args["v"], args["ell"], args["out"]))
+
+    t = {k: torch.tensor(v) for k, v in a.items()}
+    dx_t = fused_gram.data_grad(kind, t["x"], t["y"], t["v"], t["u"], t["ell"], t["out"])
+    dy_t = fused_gram.data_grad(kind, t["y"], t["x"], t["u"], t["v"], t["ell"], t["out"])
+    assert dx_t.shape == dx_j.shape == (70, 8)
+    assert _rel(dx_t, dx_j) < 10 * _TOL[kind]
+    assert _rel(dy_t, dy_j) < 10 * _TOL[kind]
+
+
 @pytest.mark.parametrize(("kind", "d", "m", "symmetric"), _CASES)
 def test_fused_matvec_data_gradients_match_autograd_of_the_plain_matvec(kind, d, m, symmetric):
     """The Function's backward (K3 twice) against autograd through the plain K1."""

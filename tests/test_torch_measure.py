@@ -74,7 +74,7 @@ def _chip_smoke():
         ("K2", 1, 121.8, 121.8),  # one multiply a cell, on the fp32 pipes
         ("K1", 15, 69.3, 140.9),
         ("K1", 1, 69.3, 74.0),
-        ("K3", 225, 1194.0, 1194.0),  # K3 still contracts on the fp32 pipes
+        ("K3", 225, 436.4, 1194.0),  # the contraction at the 3xTF32 rate, as K2's
         ("K3", 1, 124.2, 124.2),
     ],
 )
@@ -90,10 +90,12 @@ def test_gram_bounds_at_n_400k(kernel, m, bound_ms, all_fp32_ms):
     assert round(all_fp32, 1) == all_fp32_ms
 
 
+@pytest.mark.parametrize("plain", ["gram_grads_plain", "gram_dgrads_plain"])
 @pytest.mark.parametrize("m", [1, 8, 15, 225])
-def test_k2_operands_pad_m_with_zero_columns(m):
-    """K2 takes m = 1 or m in multiples of 4: the zero columns that the
-    wrapper adds leave the plain totals as they were."""
+def test_k2_operands_pad_m_with_zero_columns(m, plain):
+    """K2 and K3 take m = 1 or m in multiples of 4: the zero columns that
+    the wrapper adds leave the plain totals (K2) and moments (K3) as they
+    were."""
     import numpy as np
     import torch
 
@@ -104,6 +106,7 @@ def test_k2_operands_pad_m_with_zero_columns(m):
     assert pv.shape[1] == pu.shape[1] == (m if m == 1 else -(-m // 4) * 4)
     assert torch.equal(pv[:, :m], v2) and torch.equal(pu[:, :m], u2)
     assert not pv[:, m:].any() and not pu[:, m:].any()
-    want = fused_gram.gram_grads_plain("matern32", xs, ys, v2, u2)
-    torch.testing.assert_close(fused_gram.gram_grads_plain("matern32", xs, ys, pv, pu), want,
+    fn = getattr(fused_gram, plain)
+    want = fn("matern32", xs, ys, v2, u2)
+    torch.testing.assert_close(fn("matern32", xs, ys, pv, pu), want,
                                rtol=1e-6, atol=1e-6 * float(want.abs().max()))
