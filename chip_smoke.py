@@ -48,8 +48,13 @@ Phases, in order:
      version (Q, H, residual, 1/|v0|) and the autograd Function (K9
      forward, adjoint over the transposed K4 and K5) against the plain
      forward and adjoint, at (n, K) from (4,736, 12) to (1,000,000, 90),
-     with and without re-orthogonalisation, and on an exhausted Krylov
-     space (exactly);
+     with and without re-orthogonalisation, on an exhausted Krylov
+     space (exactly), and on the streamed path at (100,489, 90) (n odd),
+     (262,144, 250) (small tiles, v0 not 16-byte aligned) and (9,216,
+     1,000) (the direct path, which reads the basis from device memory;
+     held to the plain version on the leading 100 columns and to the
+     Arnoldi relation and orthonormality over all);
+     K9 bit for bit across two runs at (1,000,000, 90) and (16,384, 250);
  11. the Arnoldi slice: ``sparse_operator`` -> ``hessenberg`` (K = 90)
      and ``tridiag(reortho="full")`` (K = 10, 90, 250) at the 128 x 128
      Laplacian and ``hessenberg`` at 1000 x 1000, one VJP with the
@@ -60,7 +65,11 @@ Phases, in order:
      closed-form log-determinant;
  13. the wave-PDE training step at 128 x 128 on the bundled pairs: the
      adjoint gradient against backprop, then three Adam steps;
- 14. K9's time per launch beside its bound and plain version;
+ 14. K9's time per launch beside its bound (each array once), the
+     traffic of its streamed schedule where the basis cannot stay on
+     chip (three reads of the basis a step, two without
+     re-orthogonalisation), its plain version and its launch plan (path,
+     blocks, tile rows);
  15. K3 parity (``csrc/gram_dgrads.cu``): the data-gradient moments
      against their plain version at [parity]'s rows and widths, m in
      {1, 8, 15, 225, 400}, bit for bit across two runs, and the
@@ -1234,6 +1243,24 @@ ARNOLDI_SLICE = ((128, "hessenberg", 90, "none"), (128, "hessenberg", 90, "full"
                  (128, "tridiag", 250, "full"), (1000, "hessenberg", 90, "full"))
 # Which [slice-arnoldi] run is the main path of the kernels line.
 ARNOLDI_MAIN = (1000, "hessenberg", 90, "full")
+# (n, K, reortho) of [parity-arnoldi] on K9's streamed path beyond the main
+# path's n = 1,000,000: n = 317^2 (odd, so 4-byte copies); K = 250 at 512^2
+# (tiles of about 100 rows), its v0 a view 4 bytes past a 16-byte boundary
+# (the wrapper copies it for the bulk copies). Their inputs come from their
+# own generator, so every earlier case keeps its inputs.
+ARNOLDI_STREAMED = ((100_489, 90, "full"), (262_144, 250, "full"))
+ARNOLDI_MISALIGNED = 262_144  # the n of the case above whose v0 is misaligned
+# K = 1,000 at 96^2: K9's streamed steps from 836 on would stage tiles of
+# fewer than 32 rows, so the launch takes the direct path, whose sweeps read
+# the basis from device memory. So deep a basis
+# diverges from its plain version (their f32-vs-f64 spread is O(1)), so the
+# kernel is held to the plain version on the leading ARNOLDI_DEEP_LEAD
+# columns and, over all columns, to the Arnoldi relation and the basis's
+# orthonormality, each within 10x the plain version's own (floor 1e-6).
+ARNOLDI_DEEP, ARNOLDI_DEEP_LEAD = (9_216, 1_000, "full"), 100
+# (n, K, reortho) at which K9 must give the same bits in two runs: the
+# main path's streamed shape and the deepest resident one.
+ARNOLDI_BITWISE = ((1_000_000, 90, "full"), (16_384, 250, "full"))
 ARNOLDI_KERNELS = ("arnoldi_dia_forward", "dia_matvec", "dia_matvec_transposed", "dia_dvals")
 SLQ_DEPTH, SLQ_PROBES = 90, 10
 PDE_GRID, PDE_STEPS = 128, 3
@@ -1272,6 +1299,19 @@ def _arnoldi_cases():
     for reortho in ("none", "full"):
         yield (f"exhausted (1.5 I, one-hot v0) n={n} K=12 {reortho}", _dia((0,), n),
                torch.full((1, n), 1.5, device=DEVICE), v0, 12, reortho, True)
+    rng = np.random.default_rng(12)
+    for n, depth, reortho in ARNOLDI_STREAMED:
+        _mat, dia, vals = _laplacian(int(round(n ** 0.5)))
+        v0, name = _tensor(rng, n), f"laplacian n={n} K={depth} {reortho}"
+        if n == ARNOLDI_MISALIGNED:
+            held = torch.empty(n + 1, device=DEVICE)
+            held[1:] = v0
+            v0, name = held[1:], name + " (v0 misaligned)"
+            assert v0.data_ptr() % 16 == 4 and v0.is_contiguous()
+        yield name, dia, vals, v0, depth, reortho, False
+    n, depth, reortho = ARNOLDI_DEEP
+    _mat, dia, vals = _laplacian(int(round(n ** 0.5)))
+    yield f"laplacian n={n} K={depth} {reortho}", dia, vals, _tensor(rng, n), depth, reortho, "deep"
 
 
 def _plain_dia_vjp(offsets, vals):
@@ -1309,6 +1349,10 @@ def phase_parity_arnoldi():
         kernel = fa.hessenberg_dia_forward_rows(offsets, vals, v0, depth, reortho)
         plain = fa.hessenberg_dia_forward_plain(offsets, vals, v0, depth, reortho)
         torch.cuda.synchronize()
+        if exhausted == "deep":
+            _k9_deep(name, offsets, vals, v0, depth, reortho, kernel, plain, failures)
+            del kernel, plain
+            continue
         if exhausted:
             same = all(torch.equal(a, b) for a, b in zip(kernel, plain))
             zeros = float(kernel[1].abs().sum()) == 1.5 and float(kernel[0][1:].abs().max()) == 0.0
@@ -1335,9 +1379,67 @@ def phase_parity_arnoldi():
             _report_spread(f"K9 Function {label} {name} vs plain", _rel_err(grads[i], want[i]),
                            _rel_err(want[i], exact[i]), failures)
         del plain, cot, grads, want, exact
+    _k9_bitwise(failures)
     if failures:
         msg = f"{len(failures)} Arnoldi parity checks failed: {failures[:5]}"
         raise RuntimeError(msg)
+
+
+def _arnoldi_invariants(offsets, vals, q, h, res):
+    """(Arnoldi relation, orthonormality, zero rows) of a K9 result, in
+    float64: max |A Q - H^T Q - e_{K-1} res| / max |A Q| over the (K, n)
+    rows, max |Q Q^T - I| over the nonzero rows (a DGKS truncation leaves
+    the rows after it zero) and the number of zero rows."""
+    q, h, res, vals = q.double(), h.double(), res.double(), vals.double()
+    aq = sum(vals[k] * torch.roll(q, -int(d), dims=1) for k, d in enumerate(offsets))
+    rel = aq - h.T @ q
+    rel[-1] -= res
+    nonzero = (q.abs().amax(dim=1) > 0).double()
+    orth = (q @ q.T - torch.diag(nonzero)).abs().max()
+    return float(rel.abs().max() / aq.abs().max()), float(orth), int((nonzero == 0).sum())
+
+
+def _k9_deep(name, offsets, vals, v0, depth, reortho, kernel, plain, failures):
+    """K9 at ``ARNOLDI_DEEP`` against its plain version: the leading columns
+    by the spread rule, every column by the invariants."""
+    from lanczos_adjoints_tpu_torch.ops import fused_arnoldi as fa
+
+    exact = fa.hessenberg_dia_forward_plain(offsets, vals.double(), v0.double(), depth, reortho)
+    lead = ARNOLDI_DEEP_LEAD
+    for label, pick in (("Q", lambda r: r[0][:lead]), ("H", lambda r: r[1][:lead, :lead])):
+        _report_spread(f"K9 {label} {name}, leading {lead} columns, kernel vs plain",
+                       _rel_err(pick(kernel), pick(plain)), _rel_err(pick(plain), pick(exact)), failures)
+    got = _arnoldi_invariants(offsets, vals, *kernel[:3])
+    want = _arnoldi_invariants(offsets, vals, *plain[:3])
+    for label, a, b in (("Arnoldi relation", got[0], want[0]), ("orthonormality", got[1], want[1])):
+        tol = _spread_tol(b)
+        status = "ok" if a <= tol else "FAIL"
+        print(f"  K9 {label} {name}: kernel {a:.3e}; plain f32 {b:.3e}; tol {tol:.3e} {status}", flush=True)
+        if not a <= tol:
+            failures.append(f"K9 {label} {name}")
+    plan = fa.launch_plan(v0.shape[0], depth, reortho, *fa.device_limits(DEVICE), num_diags=len(offsets))
+    print(f"  K9 {name}: {plan.path} path; zero rows kernel {got[2]}, plain {want[2]}", flush=True)
+    if plan.path != "direct":
+        failures.append(f"K9 {name}: the {plan.path} path, not the direct one")
+
+
+def _k9_bitwise(failures):
+    """K9 twice on the same inputs at ``ARNOLDI_BITWISE``: the same bits."""
+    from lanczos_adjoints_tpu_torch.ops import fused_arnoldi as fa
+
+    rng = np.random.default_rng(13)
+    for n, depth, reortho in ARNOLDI_BITWISE:
+        _mat, dia, vals = _laplacian(int(round(n ** 0.5)))
+        v0 = _tensor(rng, n)
+        first = fa.hessenberg_dia_forward_rows(dia.offsets, vals, v0, depth, reortho)
+        second = fa.hessenberg_dia_forward_rows(dia.offsets, vals, v0, depth, reortho)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        plan = fa.launch_plan(n, depth, reortho, *fa.device_limits(DEVICE), num_diags=len(dia.offsets))
+        print(f"  K9 n={n} K={depth} {reortho} ({plan.path}): two runs bit for bit {same}", flush=True)
+        if not same:
+            failures.append(f"K9 bitwise n={n} K={depth} {reortho}")
+        del first, second
 
 
 def _arnoldi_entry(kind, matvec, depth, reortho, **kwargs):
@@ -1572,6 +1674,30 @@ def _arnoldi_ops(n, depth, passes, num_diags=5):
     return 4 * passes * n * depth * (depth + 1) // 2 + 2 * num_diags * n * depth
 
 
+# One H100 SXM: SMs and the shared memory a block may opt into (NVIDIA's
+# Hopper tuning guide), for K9's bound.
+H100_SMS, H100_SMEM_PER_BLOCK = 132, 232_448
+
+
+def _arnoldi_bounds(n, depth, reortho, num_diags=5, sms=H100_SMS, smem_per_block=H100_SMEM_PER_BLOCK):
+    """K9's bound, each array once (``bound_ms``: what the function must
+    move), and beside it the streamed schedule's traffic where the (K, n)
+    basis exceeds the card's shared memory (``bound_ms_streamed``): step i
+    reads Q[:i+1] three times with re-orthogonalisation (first-pass dots;
+    first update with second-pass dots; second update), twice without,
+    plus each other array once. The latter credits no basis row kept on
+    chip, so it is a bound of that schedule, not of the function."""
+    passes = 2 if reortho == "full" else 1
+    ops = _arnoldi_ops(n, depth, passes, num_diags)
+    once = 4 * ((num_diags + 2 + depth) * n + depth * depth + 1)
+    streamed = once + 4 * (passes + 1) * n * depth * (depth + 1) // 2
+    bound_ms, by = _bound(once, ops)
+    streamed_ms, streamed_by = _bound(streamed, ops)
+    return {"bound_ms": bound_ms, "bound_by": by, "bound_bytes": once, "ops": ops,
+            "basis_on_chip": 4 * depth * n <= sms * smem_per_block,
+            "bound_ms_streamed": streamed_ms, "bound_by_streamed": streamed_by, "bytes_streamed": streamed}
+
+
 def phase_timing_arnoldi(slice_runs):
     """K9's device time per launch at [parity-arnoldi]'s shapes from 16,384 up,
     beside its bound and its plain version's time; its kernels-line entry."""
@@ -1579,6 +1705,7 @@ def phase_timing_arnoldi(slice_runs):
 
     print("[timing-arnoldi] K9 at the slice's shapes (profiler and CUDA events); library: none",
           flush=True)
+    limits = fa.device_limits(DEVICE)
     rows, failures = {}, []
     rng = np.random.default_rng(9)
     for n, depth, reortho in ARNOLDI_PARITY:
@@ -1587,22 +1714,33 @@ def phase_timing_arnoldi(slice_runs):
         _mat, dia, vals = _laplacian(int(round(n ** 0.5)))
         offsets, num_diags = dia.offsets, len(dia.offsets)
         v0 = _tensor(rng, n)
-        passes = 2 if reortho == "full" else 1
-        nbytes = 4 * ((num_diags + 2 + depth) * n + depth * depth + 1)
-        ops = _arnoldi_ops(n, depth, passes, num_diags)
-        # Re-reading the basis rows in every pass (dots and update) and the
-        # matvec's operands every step, as the kernel does.
-        modelled = 4 * (2 * passes * n * depth * (depth + 1) // 2 + depth * (num_diags + 6) * n)
+        bounds = _arnoldi_bounds(n, depth, reortho, num_diags)
+        plan = fa.launch_plan(n, depth, reortho, *limits, num_diags=num_diags)
+        print(f"  K9 n={n} K={depth} {reortho}: {plan.path} path, {plan.blocks} blocks of "
+              f"{plan.block_threads} threads ({plan.threads} computing), {plan.rows} rows a block, "
+              f"{plan.sweeps} sweeps a step, tile rows {plan.tile_rows(0)} at step 0 and "
+              f"{plan.tile_rows(depth - 1, 'A')} (A) / {plan.tile_rows(depth - 1)} (B, C) at step "
+              f"{depth - 1}, {plan.smem_bytes} B of shared memory a block (card: {limits[0]} SMs, "
+              f"{limits[1]} B a block)", flush=True)
         _record(rows, failures, (n, depth, reortho), "arnoldi_forward_kernel",
                 [lambda: fa.hessenberg_dia_forward_rows(offsets, vals, v0, depth, reortho)],
                 [lambda: fa.hessenberg_dia_forward_plain(offsets, vals, v0, depth, reortho)],
-                nbytes, ops, 5 if n > 100_000 else 20, 1,
+                bounds["bound_bytes"], bounds["ops"], 5 if n > 100_000 else 20, 1,
                 exact=lambda: fa.hessenberg_dia_forward_plain(offsets, vals.double(), v0.double(),
                                                               depth, reortho))
         row = rows[(n, depth, reortho)]
-        row.update(n=n, depth=depth, reortho=reortho, modelled_bytes=modelled)
-        print(f"    modelled traffic re-reading the basis every pass: {modelled / 1e9:.3f} GB, "
-              f"{1e3 * modelled / PEAK_BYTES:.3f} ms at 3.35 TB/s; launches in the main path's VJP: 1",
+        row.update(n=n, depth=depth, reortho=reortho, path=plan.path, blocks=plan.blocks,
+                   threads=plan.threads, tile_rows_last=plan.tile_rows(depth - 1),
+                   bytes_streamed=bounds["bytes_streamed"], basis_on_chip=bounds["basis_on_chip"])
+        if not bounds["basis_on_chip"]:
+            row.update(bound_ms_streamed=bounds["bound_ms_streamed"])
+        sweeps = (f"; the streamed schedule ({3 if reortho == 'full' else 2} reads of Q[:i+1] a step, "
+                  f"no row kept on chip) {bounds['bytes_streamed'] / 1e9:.3f} GB, "
+                  f"{bounds['bound_ms_streamed']:.4f} ms, the kernel at "
+                  f"{100 * bounds['bound_ms_streamed'] / row['ms']:.1f} % of it"
+                  ) if not bounds["basis_on_chip"] else " (the basis fits the card's shared memory)"
+        print(f"    bound {bounds['bound_ms']:.4f} ms by {bounds['bound_by']} (each array once, "
+              f"{bounds['bound_bytes'] / 1e9:.3f} GB){sweeps}; launches in the main path's VJP: 1",
               flush=True)
     if failures:
         raise RuntimeError(f"K9 disagrees with its plain version in [timing-arnoldi]: {failures}")

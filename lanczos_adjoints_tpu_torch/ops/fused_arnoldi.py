@@ -9,6 +9,15 @@ Hessenberg matrix. Its plain version repeats the same arithmetic in
 PyTorch. A wrapper launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors; there is no other path.
 
+K9's launch is planned here, by ``launch_plan`` from the card's SM count
+and shared memory, and only validated by the kernel: one block an SM,
+contiguous rows a block, and either the block's slice of the basis
+resident in shared memory (small n) or the basis streamed through staged
+tiles, three sweeps a step with re-orthogonalisation and two without, or,
+where the deepest staged tile would be shallower than ``MIN_TILE`` rows,
+the same sweeps reading the basis from device memory a row a thread (the
+direct path), so that any depth runs.
+
 ``hessenberg_dia_fused`` is the drop-in ``krylov.arnoldi.hessenberg`` for
 DIA operators: an autograd Function whose forward is K9 and whose
 backward is the generic closed-form adjoint (``krylov.arnoldi._adjoint``).
@@ -20,6 +29,7 @@ on the card would be a plain version on CUDA tensors.
 """
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -30,6 +40,132 @@ from lanczos_adjoints_tpu_torch.ops.fused_lanczos import guarded_div
 ARNOLDI_FORWARD = native.Kernel("arnoldi_dia_forward", "arnoldi_dia", "lat_arnoldi_dia_forward",
                                 device_symbol="arnoldi_forward_kernel")
 LANES = 128  # the JAX kernel's lane width, kept for its n % 128 rule
+
+THREADS = 512  # a K9 block's computing threads (the streamed path adds a producer warp)
+MAX_BLOCK_THREADS = 544  # kMaxThreads in csrc/arnoldi_dia.cu
+STAGES = 2  # K9's staging buffers on the streamed path (kStages)
+# Shared memory of a K9 block ahead of its coefficients (kHeadFloats in
+# csrc/arnoldi_dia.cu): the staged offsets, one float per warp and eight
+# mbarriers.
+HEAD_FLOATS = native.MAX_DIAGS + 32 + 16
+SMEM_RESERVE = 1024  # bytes of a block's shared memory the plan leaves free
+MIN_TILE = 32  # kMinTile: the fewest rows of a staged tile
+PATHS = ("resident", "streamed", "direct")  # the kernel's path argument, by index
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """K9's launch: ``blocks`` of ``threads`` computing threads, block b
+    owning rows ``[b rows, (b + 1) rows)``. ``path`` is ``"resident"`` (the
+    block's slice of the basis in shared memory), ``"streamed"`` (the
+    basis staged in tiles through ``STAGES`` buffers of ``stage_floats`` by
+    one more warp, the producer) or ``"direct"`` (the basis read from
+    device memory, a row a thread)."""
+
+    path: str
+    blocks: int
+    threads: int
+    rows: int
+    stage_floats: int
+    smem_bytes: int
+    partial_floats: int
+    depth: int
+    num_diags: int
+    sweeps: int
+
+    @property
+    def block_threads(self) -> int:
+        return self.threads + (32 if self.path == "streamed" else 0)
+
+    def tile_rows(self, step: int, sweep: str = "B") -> int:
+        """Rows of a tile at step ``step`` (the kernel's ``Stream::tile``):
+        on the streamed path the largest multiple of 4 such that a buffer
+        holds the tile, at most ``rows`` and ``threads``; the block's rows
+        on the resident path, ``min(rows, threads)`` on the direct one. A B
+        or C tile is Q[:step+1] and w; an A tile Q[:step], the D rows of the
+        values and D + 1 windows of T + 4 floats of the previous residual."""
+        if self.path != "streamed":
+            return self.rows if self.path == "resident" else min(self.rows, self.threads)
+        return _staged_rows(self.stage_floats, step, self.num_diags, sweep == "A", self.rows, self.threads)
+
+
+def _staged_rows(stage, step, num_diags, a, rows, threads):
+    """The kernel's ``tile_rows``."""
+    if a:
+        t = (stage - 4 * (num_diags + 1)) // (step + 2 * num_diags + 1)
+    else:
+        t = stage // (step + 2)
+    return min(rows, threads, t // 4 * 4)
+
+
+def _smem_bytes(depth, threads, rows, path, stage_floats):
+    """The kernel's ``smem_floats`` in bytes."""
+    head = HEAD_FLOATS + 2 * ((depth + 4) // 4 * 4) + threads
+    if path == "resident":
+        return 4 * (head + (depth + 1) * rows)
+    return 4 * (head + 2 * threads + (STAGES * stage_floats if path == "streamed" else 0))
+
+
+def stage_floats(depth, threads, rows, budget):
+    """Floats of each of the streamed path's ``STAGES`` buffers: as large as
+    the ``budget`` bytes of shared memory left by the rest of its layout
+    allow, a multiple of 4."""
+    free = (budget - _smem_bytes(depth, threads, rows, "streamed", 0)) // 4
+    return max(0, free // STAGES // 4 * 4)
+
+
+def launch_plan(n, depth, reortho, sms, smem_per_block, *, num_diags):
+    """K9's launch on a card of ``sms`` SMs and ``smem_per_block`` bytes of
+    opt-in shared memory a block.
+
+    ``num_diags`` is the operator's number of diagonals (an A tile stages
+    the values and the windows of the previous residual they multiply).
+    One block an SM at most, each owning ``rows`` contiguous rows (n / sms
+    rounded up to a multiple of 4), of ``THREADS`` computing threads. The
+    resident path where the block's (depth + 1) x rows floats (basis slice
+    and w) fit beside the coefficients, else the streamed path with the
+    staging buffers as large as the rest of the shared memory allows, else
+    (its deepest A tile would hold fewer than ``MIN_TILE`` rows, or than
+    the block's rows where those are fewer) the direct path; any depth
+    runs. A card whose shared memory cannot hold a block's coefficients
+    raises ``ValueError``.
+    """
+    arnoldi.check_option(reortho)
+    if not 0 < depth <= n:
+        msg = f"no K9 plan for n={n}, depth={depth}"
+        raise ValueError(msg)
+    rows = -(-(-(-n // sms)) // 4) * 4
+    blocks = -(-n // rows)
+    budget = smem_per_block - SMEM_RESERVE
+    path, stage = "resident", 0
+    if _smem_bytes(depth, THREADS, rows, path, 0) > budget:
+        path, stage = "streamed", stage_floats(depth, THREADS, rows, budget)
+        if _staged_rows(stage, depth - 1, num_diags, True, rows, THREADS) < min(MIN_TILE, rows):
+            path, stage = "direct", 0
+    smem = _smem_bytes(depth, THREADS, rows, path, stage)
+    if smem > budget:
+        msg = f"K9 needs {smem} bytes of shared memory a block at depth {depth}; the card has {budget}"
+        raise ValueError(msg)
+    return LaunchPlan(path=path, blocks=blocks, threads=THREADS, rows=rows, stage_floats=stage,
+                      smem_bytes=smem, partial_floats=(2 * depth + 3) * -(-blocks // 4) * 4, depth=depth,
+                      num_diags=num_diags, sweeps=3 if reortho == "full" else 2)
+
+
+_DEVICE_LIMITS = {}
+
+
+def device_limits(device):
+    """``(SMs, opt-in shared memory bytes a block)`` of a CUDA device."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _DEVICE_LIMITS:
+        sms, smem = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(index):
+            lib = native.library(ARNOLDI_FORWARD.source)
+            native.check(lib.lat_arnoldi_dia_device(ctypes.addressof(sms), ctypes.addressof(smem)),
+                         "lat_arnoldi_dia_device")
+        _DEVICE_LIMITS[index] = (sms.value, smem.value)
+    return _DEVICE_LIMITS[index]
 
 
 def hessenberg_dia_forward_plain(offsets, vals, v0, depth, reortho):
@@ -75,21 +211,22 @@ def hessenberg_dia_forward_rows(offsets, vals, v0, depth, reortho):
     if device.type == "cpu":
         return hessenberg_dia_forward_plain(offsets, vals, v0, depth, reortho)
     with torch.cuda.device(device):
-        blocks = ctypes.c_int(0)
-        lib = native.library(ARNOLDI_FORWARD.source)
-        native.check(lib.lat_arnoldi_dia_grid(n, ctypes.addressof(blocks)), "lat_arnoldi_dia_grid")
-        g = blocks.value
+        plan = launch_plan(n, depth, reortho, *device_limits(device), num_diags=len(offsets))
+        # The streamed path's bulk copies read 16-byte aligned rows.
+        vals, v0 = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (vals, v0))
 
         def empty(*shape):
             return torch.empty(shape, dtype=torch.float32, device=device)
 
         q, h, res, inv_norm = empty(depth, n), empty(depth, depth), empty(n), empty(1)
-        wbuf, partials, coef = empty(2, n), empty((2 * depth + 2) * g), empty(depth * g)
+        wbuf, partials = empty(2, n), empty(plan.partial_floats)
+        counter = torch.zeros(1, dtype=torch.int32, device=device)  # the grid barrier's
         ARNOLDI_FORWARD.launch(
             vals.data_ptr(), v0.data_ptr(), q.data_ptr(), h.data_ptr(), res.data_ptr(),
-            inv_norm.data_ptr(), wbuf.data_ptr(), partials.data_ptr(), coef.data_ptr(), g, n,
+            inv_norm.data_ptr(), wbuf.data_ptr(), partials.data_ptr(), counter.data_ptr(), n,
             len(offsets), native.offsets_arg(offsets, n), depth, int(reortho == "full"),
-            native.stream(device),
+            plan.blocks, plan.threads, plan.rows, PATHS.index(plan.path),
+            plan.stage_floats, plan.smem_bytes, native.stream(device),
         )
     return q, h, res, inv_norm[0]
 

@@ -62,9 +62,9 @@ _SIGNATURES = {
         ),
     },
     "arnoldi_dia": {
-        "lat_arnoldi_dia_grid": (_I, _P),
+        "lat_arnoldi_dia_device": (_P, _P),
         "lat_arnoldi_dia_forward": (
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P,
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
         ),
     },
     "bsr": {"lat_bsr_spmv": (_P, _P, _P, _P, _P, _I, _I, _P)},

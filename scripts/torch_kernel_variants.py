@@ -1,8 +1,8 @@
-"""Time design variants of the port's K1, K2, K3 and K10 kernels side by side on one GPU.
+"""Time design variants of the port's K1, K2, K3, K9 and K10 kernels side by side on one GPU.
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc:
-``python3 scripts/torch_kernel_variants.py [--only k1,k2,k3,k10] [--parent DIR]``
-(all four kernels unless ``--only`` names some). Each variant is the
+``python3 scripts/torch_kernel_variants.py [--only k1,k2,k3,k9,k10] [--parent DIR]``
+(all five kernels unless ``--only`` names some). Each variant is the
 kernel's source under ``lanczos_adjoints_tpu_torch/csrc/`` with one
 constant replaced, compiled into its own library in a temporary
 directory; the package's own build is left alone. It prints each
@@ -27,24 +27,41 @@ variant's register count and time beside the chosen one's:
 - K3 (``gram_dgrads.cu``): the kernel (U resident) and U re-staged per
   tile, at the same shapes as K2, each result held to the plain version
   on the first 2,048 rows, with the registers, stack and spill bytes of
-  every instantiation.
+  every instantiation;
+- K9 (``arnoldi_dia.cu``): the kernel as ``launch_plan`` sets it up and
+  with other plans derived from it (256 computing threads a block,
+  staging buffers of a quarter of the size, so tiles of a quarter of the
+  rows; at n = 16,384 the streamed path in place of the resident one) and
+  with 3 staging buffers in place of 2; the direct path (the basis read
+  from device memory) at every shape, on the 2-D Laplacian
+  at (n, K, reortho) = (1,000,000, 90, full), (16,384, 90, none),
+  (16,384, 90, full) and (16,384, 250, full), CUDA events, each result
+  held to the plain version; with the registers, stack and spill bytes of
+  the three paths' instantiations.
 
 ``--breakdown`` times K2 at m = 225 and K3 at m = 1 and 225 instead of
 their variants, with parts of their work cut out (K3's moments; the
 epilogue; then also the V copies, the contraction, both, or the TF32
-split), to show where their time goes.
+split), to show where their time goes; and K9 at its shapes without
+the second-pass dots of sweep B, and (streamed) without the copies.
 
 ``--parent DIR`` (a checkout of an earlier commit, e.g. unpacked by
 ``git archive``) also builds that commit's ``gram_matvec.cu``,
 ``gram_grads.cu``, ``gram_dgrads.cu`` and ``bsr.cu`` (those of the
 kernels selected) and times them against this tree's on the same card,
 in the order parent, this, this, parent. The parent's K2 and K3 get m
-unpadded.
+unpadded; the parent's K9 (``arnoldi_dia.cu``, its grid from
+``lat_arnoldi_dia_grid``) runs at K9's four shapes and, where DIR is a
+whole checkout, the paths that launch K9 (the Arnoldi VJPs of
+``chip_smoke.ARNOLDI_SLICE`` and the per-probe SLQ value and gradient)
+run with each tree's own code in a process of its own.
 """
 
 import argparse
 import ctypes
+import dataclasses
 import itertools
+import json
 import re
 import subprocess
 import sys
@@ -57,6 +74,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke as cs  # noqa: E402
+from lanczos_adjoints_tpu_torch.ops import fused_arnoldi as fa  # noqa: E402
 from lanczos_adjoints_tpu_torch.ops import fused_bsr, native  # noqa: E402
 from lanczos_adjoints_tpu_torch.ops import fused_gram as fg  # noqa: E402
 from lanczos_adjoints_tpu_torch.utils.precision import pin_float32  # noqa: E402
@@ -431,6 +449,243 @@ def k3_parent(tmp, parent, n=400_000):
               f"{check_rows} rows: parent {errs['parent']:.2e}, this {errs['this']:.2e}", flush=True)
 
 
+K9_SHAPES = ((1_000_000, 90, "full"), (16_384, 90, "none"), (16_384, 90, "full"), (16_384, 250, "full"))
+
+
+def _k9_data(shapes=K9_SHAPES):
+    """``{(n, K, reortho): (offsets, vals, v0, plain result)}`` on the 2-D
+    Laplacian, v0 from one seeded generator."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    data = {}
+    for n, depth, reortho in shapes:
+        _mat, dia, vals = cs._laplacian(int(round(n ** 0.5)))
+        v0 = torch.randn(n, generator=g, device="cuda")
+        want = fa.hessenberg_dia_forward_plain(dia.offsets, vals, v0, depth, reortho)
+        data[(n, depth, reortho)] = (dia.offsets, vals, v0, want)
+    return data
+
+
+def _k9_err(got, want):
+    return max(cs._rel_err(a, b) for a, b in zip(got, want))
+
+
+def k9_runner(fn, offsets, vals, v0, depth, reortho, plan):
+    """A closure that launches one K9 library's ``lat_arnoldi_dia_forward``
+    (this tree's C interface) with ``plan`` and returns (q, H, res, 1/|v0|)."""
+    fn.argtypes = list(native._SIGNATURES["arnoldi_dia"]["lat_arnoldi_dia_forward"])
+    n = v0.shape[0]
+    q, h, res, inv = (torch.empty(shape, device="cuda") for shape in ((depth, n), (depth, depth), (n,), (1,)))
+    wbuf, partials = torch.empty((2, n), device="cuda"), torch.empty(plan.partial_floats, device="cuda")
+    counter = torch.zeros(1, dtype=torch.int32, device="cuda")
+    offs = native.offsets_arg(offsets, n)
+
+    def run():
+        counter.zero_()
+        native.check(fn(vals.data_ptr(), v0.data_ptr(), q.data_ptr(), h.data_ptr(), res.data_ptr(),
+                        inv.data_ptr(), wbuf.data_ptr(), partials.data_ptr(), counter.data_ptr(), n,
+                        len(offsets), offs, depth,
+                        int(reortho == "full"), plan.blocks, plan.threads, plan.rows,
+                        fa.PATHS.index(plan.path), plan.stage_floats, plan.smem_bytes,
+                        torch.cuda.current_stream().cuda_stream), "K9")
+        return q, h, res, inv[0]
+
+    return run
+
+
+def k9_ptxas(report):
+    """``[(instantiation, registers, stack, spill stores, spill loads)]`` of K9's three paths."""
+    rows, current, frame = [], None, (0, 0, 0)
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            match = re.search(r"arnoldi_forward_kernelILi([012])E", line)
+            current = fa.PATHS[int(match[1])] if match else None
+            frame = (0, 0, 0)
+        elif current and "bytes stack frame" in line:
+            frame = tuple(int(v) for v in re.findall(r"(\d+) bytes", line)[:3])
+        elif current and "Used" in line and "registers" in line:
+            rows.append((current, int(re.search(r"Used (\d+) registers", line)[1]), *frame))
+            current = None
+    return rows
+
+
+def k9_variant(plan, path=None, threads=None, stage_floats=None):
+    """``plan`` with another path, computing threads or staging buffers (a
+    streamed path taking the buffers that fit unless given), its shared
+    bytes recomputed as ``launch_plan`` computes them."""
+    path, threads = path or plan.path, threads or plan.threads
+    stage = 0
+    if path == "streamed":
+        budget = fa.device_limits("cuda")[1] - fa.SMEM_RESERVE
+        stage = stage_floats or fa.stage_floats(plan.depth, threads, plan.rows, budget)
+    smem = fa._smem_bytes(plan.depth, threads, plan.rows, path, stage)
+    return dataclasses.replace(plan, path=path, threads=threads, stage_floats=stage, smem_bytes=smem)
+
+
+def k9_variants(tmp):
+    """K9 with ``launch_plan``'s plan and with other plans at ``K9_SHAPES``,
+    and the streamed path with 3 staging buffers in place of 2; the
+    registers, stack and spill of every instantiation."""
+    other = 3 if fa.STAGES == 2 else 2
+    stages = {fa.STAGES: [], other: [(f"kStages = {fa.STAGES};", f"kStages = {other};")]}
+    built = build_parallel({k: (edited_source("arnoldi_dia.cu", edits, tmp / f"k9_{k}"), tmp / f"k9_{k}")
+                            for k, edits in stages.items()})
+    for k, (_lib, report) in built.items():
+        print(f"K9 with {k} staging buffers: " + "; ".join(
+            f"{name} {regs} registers, stack {stack} B, spill {st}/{ld} B"
+            for name, regs, stack, st, ld in k9_ptxas(report)), flush=True)
+    lib = built[fa.STAGES][0]
+    sms, smem = fa.device_limits("cuda")
+    for (n, depth, reortho), (offsets, vals, v0, want) in _k9_data().items():
+        base = fa.launch_plan(n, depth, reortho, sms, smem, num_diags=len(offsets))
+        plans = {"the plan": (lib, base), "256 threads": (lib, k9_variant(base, threads=256))}
+        if base.path == "streamed":
+            plans["buffers of a quarter"] = (lib, k9_variant(base, stage_floats=base.stage_floats // 16 * 4))
+            default = fa.STAGES
+            fa.STAGES = other  # the plan of the kernel built with the other number of buffers
+            try:
+                plans[f"{other} staging buffers"] = (built[other][0], fa.launch_plan(
+                    n, depth, reortho, sms, smem, num_diags=len(offsets)))
+            finally:
+                fa.STAGES = default
+        else:
+            plans["the streamed path"] = (lib, k9_variant(base, path="streamed"))
+        plans["the direct path"] = (lib, k9_variant(base, path="direct"))
+        for label, (variant, plan) in plans.items():
+            run = k9_runner(variant.lat_arnoldi_dia_forward, offsets, vals, v0, depth, reortho, plan)
+            err = _k9_err(run(), want)
+            ms, clocks = cs._events_ms_clocked(run, 5 if n > 100_000 else 20)
+            print(f"K9 n={n} K={depth} {reortho}, {label} ({plan.path}, {plan.blocks} x {plan.block_threads}, "
+                  f"tile rows {plan.tile_rows(0)}..{plan.tile_rows(depth - 1)}): {ms:.4f} ms ({clocks}); "
+                  f"rel err {err:.2e}", flush=True)
+
+
+# Where K9's time goes: the kernel with parts of its work cut out
+# (results are not the function's; only the times mean something).
+_K9_NO_DOTS_B = [("      if (full) {\n        sync_workers(threads);\n        tile_dots(tile, ld, nullptr, w_out,",
+                  "      if (false) {\n        sync_workers(threads);\n        tile_dots(tile, ld, nullptr, w_out,")]
+_K9_NO_COPIES = [("mbar_expect_tx(bar, static_cast<unsigned>(floats * 4));", "mbar_expect_tx(bar, 0u);"),
+                 ("bulk_copy(dst, src, static_cast<unsigned>(len * 4), bar);", "(void)bar;"),
+                 ("bulk_copy(dst + done, prev + pos, static_cast<unsigned>(part * 4), bar);", ""),
+                 ("for (int r = lane; r < len; r += 32) lat::cp_async4(dst + r, src + r, true);",
+                  "(void)src; (void)dst;"),
+                 ("lat::cp_async4(dst + r, prev + lat::wrap(lat::wrap(g0, r, n), d, n), true);", "")]
+_K9_NO_COMPUTE = [("                          int count, float* acc, int threads) {\n",
+                   "                          int count, float* acc, int threads) {\n  return;\n"),
+                  ("                             float* w_out, float* wg, int len, float* red, int threads) {\n",
+                   "                             float* w_out, float* wg, int len, float* red, int threads) {\n"
+                   "  return 0.0f;\n"),
+                  ("        for (int r = tid; r < len; r += threads) {\n          const int row = g0 + r;",
+                   "        for (int r = tid; r < 0; r += threads) {\n          const int row = g0 + r;"),
+                  ("        for (int r = tid; r < len; r += threads) {\n          const float qv = guarded_div(win[r], norm);",
+                   "        for (int r = tid; r < 0; r += threads) {\n          const float qv = guarded_div(win[r], norm);")]
+_K9_NO_SUMS = [("                           int threads) {\n  constexpr int kBatch = 4;\n",
+                "                           int threads) {\n  return;\n  constexpr int kBatch = 4;\n")]
+
+
+def k9_breakdown(tmp):
+    cuts = {"the kernel": [], "no second-pass dots in sweep B": _K9_NO_DOTS_B, "no copies": _K9_NO_COPIES,
+            "no compute (matvec, dots, updates)": _K9_NO_COMPUTE,
+            "no compute, no copies": _K9_NO_COMPUTE + _K9_NO_COPIES,
+            "no compute, no copies, no coefficient sums": _K9_NO_COMPUTE + _K9_NO_COPIES + _K9_NO_SUMS}
+    built = build_parallel({label: (edited_source("arnoldi_dia.cu", edits, tmp / f"k9_cut_{i}"),
+                                    tmp / f"k9_cut_{i}") for i, (label, edits) in enumerate(cuts.items())})
+    sms, smem = fa.device_limits("cuda")
+    for (n, depth, reortho), (offsets, vals, v0, _want) in _k9_data().items():
+        plans = {"": fa.launch_plan(n, depth, reortho, sms, smem, num_diags=len(offsets))}
+        if n < 100_000:
+            plans[" (streamed path)"] = k9_variant(plans[""], path="streamed")
+        for suffix, plan in plans.items():
+            for label, (lib, _report) in built.items():
+                if "copies" in label and plan.path == "resident" and label != "no compute, no copies, no coefficient sums":
+                    continue
+                run = k9_runner(lib.lat_arnoldi_dia_forward, offsets, vals, v0, depth, reortho, plan)
+                run()
+                ms, clocks = cs._events_ms_clocked(run, 5 if n > 100_000 else 20)
+                print(f"K9 breakdown n={n} K={depth} {reortho}{suffix}, {label}: {ms:.4f} ms ({clocks})",
+                      flush=True)
+
+
+def k9_parent(tmp, parent):
+    """K9 at ``K9_SHAPES``: the parent's kernel (its own grid and scratch)
+    and this tree's wrapper, parent, this, this, parent."""
+    lib = build_parent(parent, "arnoldi_dia.cu", tmp / "parent_k9")
+    lib.lat_arnoldi_dia_grid.argtypes = [_I, _P]
+    old = lib.lat_arnoldi_dia_forward
+    old.argtypes = [_P] * 9 + [_I, _I, _I, _P, _I, _I, _P]
+    for (n, depth, reortho), (offsets, vals, v0, want) in _k9_data().items():
+        blocks = ctypes.c_int(0)
+        native.check(lib.lat_arnoldi_dia_grid(n, ctypes.addressof(blocks)), "parent grid")
+        g = blocks.value
+        q, h, res, inv = (torch.empty(shape, device="cuda") for shape in ((depth, n), (depth, depth), (n,), (1,)))
+        wbuf, partials, coef = (torch.empty(size, device="cuda") for size in (2 * n, (2 * depth + 2) * g, depth * g))
+        offs = native.offsets_arg(offsets, n)
+
+        def parent_run(q=q, h=h, res=res, inv=inv, wbuf=wbuf, partials=partials, coef=coef, g=g, n=n,
+                       depth=depth, reortho=reortho, offsets=offsets, offs=offs, vals=vals, v0=v0):
+            native.check(old(vals.data_ptr(), v0.data_ptr(), q.data_ptr(), h.data_ptr(), res.data_ptr(),
+                             inv.data_ptr(), wbuf.data_ptr(), partials.data_ptr(), coef.data_ptr(), g, n,
+                             len(offsets), offs, depth, int(reortho == "full"),
+                             torch.cuda.current_stream().cuda_stream), "parent K9")
+            return q, h, res, inv[0]
+
+        runs = {"parent": parent_run,
+                "this": lambda offsets=offsets, vals=vals, v0=v0, depth=depth, reortho=reortho:
+                fa.hessenberg_dia_forward_rows(offsets, vals, v0, depth, reortho)}
+        errs = {label: _k9_err(run(), want) for label, run in runs.items()}
+        plan = fa.launch_plan(n, depth, reortho, *fa.device_limits("cuda"), num_diags=len(offsets))
+        times = []
+        for label in ("parent", "this", "this", "parent"):
+            ms, clocks = cs._events_ms_clocked(runs[label], 5 if n > 100_000 else 20)
+            times.append(f"{label} {ms:.4f} ms ({clocks})")
+        print(f"K9 n={n} K={depth} {reortho} (this: {plan.path}, parent: {g} blocks of 256): "
+              + ", ".join(times) + f"; rel err against the plain version: parent {errs['parent']:.2e}, "
+              f"this {errs['this']:.2e}", flush=True)
+
+
+# The paths that launch K9, timed by a tree's own chip_smoke.py helpers in a
+# process of its own (its own kernel build): each fused VJP of
+# ARNOLDI_SLICE (the all-ones cotangent, CUDA events over 5 after a
+# warm-up) and the per-probe SLQ value and gradient (phase_slice_slq).
+_K9_PATHS = """
+import json, sys
+import torch
+import chip_smoke as cs
+from lanczos_adjoints_tpu_torch.ops import sparse
+from lanczos_adjoints_tpu_torch.utils import test_util
+from lanczos_adjoints_tpu_torch.utils.precision import pin_float32
+from lanczos_adjoints_tpu_torch.utils.timing import events_ms
+
+pin_float32()
+out = {}
+for m, kind, depth, reortho in cs.ARNOLDI_SLICE:
+    matvec, vals = sparse.sparse_operator(test_util.laplacian_2d(m), device="cuda")
+    v0 = torch.ones(m * m, device="cuda")
+    estimate = cs._arnoldi_entry(kind, matvec, depth, reortho)
+    cs._one_vjp(estimate, v0, vals)
+    out[f"{kind} K={depth} {reortho} m={m}"] = events_ms(lambda: cs._one_vjp(estimate, v0, vals), 5)
+out["slq value and gradient m=128"] = cs.phase_slice_slq()["ms"]
+print("K9PATHS " + json.dumps(out), flush=True)
+"""
+
+
+def k9_paths(parent):
+    """The 1000^2 Arnoldi VJP, the 128^2 hessenberg and tridiag(full) VJPs
+    and the 128^2 SLQ value and gradient, each tree's own code in a process
+    of its own: parent, this, this, parent. ``parent`` is a whole
+    checkout of the earlier commit."""
+    here = Path(__file__).resolve().parent.parent
+    runs = []
+    for label, tree in (("parent", parent), ("this", here), ("this", here), ("parent", parent)):
+        proc = subprocess.run([sys.executable, "-c", _K9_PATHS], cwd=tree, capture_output=True, text=True)
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("K9PATHS ")]
+        if proc.returncode != 0 or not line:
+            raise RuntimeError(f"{label} paths failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        runs.append((label, json.loads(line[0][len("K9PATHS "):])))
+    for key in runs[0][1]:
+        print(f"K9 path {key}: " + ", ".join(f"{label} {times[key]:.3f} ms" for label, times in runs)
+              + f"; clocks {cs._clocks()}", flush=True)
+
+
 def build_parent(parent, source, workdir):
     """The parent commit's ``source``, compiled and loaded."""
     csrc = parent / "lanczos_adjoints_tpu_torch" / "csrc"
@@ -505,14 +760,15 @@ def parent_comparison(tmp, parent, n=400_000):
 
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", default="k1,k2,k3,k10", help="comma-separated kernels: k1, k2, k3, k10")
+    parser.add_argument("--only", default="k1,k2,k3,k9,k10",
+                        help="comma-separated kernels: k1, k2, k3, k9, k10")
     parser.add_argument("--parent", type=Path, help="a tree of an earlier commit to time against")
     parser.add_argument("--breakdown", action="store_true",
-                        help="K2 and K3: time the kernel with parts of its work removed")
+                        help="K2, K3 and K9: time the kernel with parts of its work removed")
     args = parser.parse_args(argv)
     only = set(args.only.split(","))
-    if not only <= {"k1", "k2", "k3", "k10"}:
-        parser.error(f"--only takes k1, k2, k3, k10, got {args.only!r}")
+    if not only <= {"k1", "k2", "k3", "k9", "k10"}:
+        parser.error(f"--only takes k1, k2, k3, k9, k10, got {args.only!r}")
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device", file=sys.stderr)
         return 2
@@ -527,17 +783,25 @@ def main(argv) -> int:
                 k2_parent(tmp, args.parent)
             if "k3" in only:
                 k3_parent(tmp, args.parent)
+            if "k9" in only:
+                k9_parent(tmp, args.parent)
+                if (args.parent / "chip_smoke.py").exists():
+                    k9_paths(args.parent)
             if only & {"k1", "k10"}:
                 parent_comparison(tmp, args.parent)
         if args.breakdown:
             for kernel in ("k2", "k3"):
                 if kernel in only:
                     breakdown(tmp, kernel)
+            if "k9" in only:
+                k9_breakdown(tmp)
         else:
             if "k2" in only:
                 k2_variants(tmp)
             if "k3" in only:
                 k3_variants(tmp)
+            if "k9" in only:
+                k9_variants(tmp)
         if "k1" in only:
             k1_variants(tmp)
         if "k10" in only:

@@ -6,7 +6,9 @@ Tolerances are the JAX fused test's (``test_pallas_arnoldi.py``): 1e-4
 with re-orthogonalisation, 1e-3 without, and 1e-4 relative for the
 gradients; past depth 48 (the JAX package's looped kernel) the port is
 held to JAX's generic ``hessenberg`` on the stable leading columns plus
-the factorisation invariants, as the JAX test does.
+the factorisation invariants, as the JAX test does. K9's launch plan
+(``fused_arnoldi.launch_plan``) is pinned for an H100's 132 SMs and
+227 KB of shared memory a block.
 """
 
 import functools
@@ -276,3 +278,99 @@ def test_exhausted_krylov_space_matches_the_jax_kernel_exactly(reortho):
     for got, want in zip(grads_t, grads_j):
         assert np.all(np.isfinite(got.numpy()))
         np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+
+
+# K9's launch plan on an H100 SXM: 132 SMs, 227 KB (232,448 bytes) of
+# opt-in shared memory a block.
+H100_SMS, H100_SMEM = 132, 232_448
+
+
+def _plan(n, depth, reortho="full", sms=H100_SMS, smem=H100_SMEM):
+    """The plan on the Laplacian's 5 diagonals (3 for the tridiagonal n = 4,739)."""
+    return fused_arnoldi.launch_plan(n, depth, reortho, sms, smem, num_diags=3 if n == 4_739 else 5)
+
+
+@pytest.mark.parametrize(("n", "depth", "reortho"), [(16_384, 90, "full"), (16_384, 90, "none"),
+                                                     (16_384, 250, "full"), (4_739, 12, "full")])
+def test_launch_plan_keeps_the_basis_resident_at_small_n(n, depth, reortho):
+    """The block's (K + 1) x rows floats fit beside the coefficients: 128
+    blocks of 128 rows at n = 16,384 (128 KB of basis at K = 250)."""
+    plan = _plan(n, depth, reortho)
+    assert plan.path == "resident" and plan.stage_floats == 0
+    assert plan.rows % 4 == 0 and plan.blocks * plan.rows >= n > (plan.blocks - 1) * plan.rows
+    assert plan.smem_bytes >= 4 * (depth + 1) * plan.rows
+    assert plan.smem_bytes <= H100_SMEM - fused_arnoldi.SMEM_RESERVE
+    assert plan.sweeps == (3 if reortho == "full" else 2)
+    assert all(plan.tile_rows(i) == plan.rows for i in (0, depth - 1))
+    if n == 16_384:
+        assert (plan.blocks, plan.rows) == (128, 128)
+
+
+@pytest.mark.parametrize(("n", "depth", "tile_rows_last"), [(1_000_000, 90, 304), (100_489, 90, 304),
+                                                            (262_144, 250, 108)])
+def test_launch_plan_streams_the_basis_where_it_does_not_fit(n, depth, tile_rows_last):
+    """Streamed: the largest staging buffers that fit. A B or C tile at step
+    i holds i + 2 rows (Q[:i+1] and w), an A tile i + D rows (Q[:i] and the
+    values) and D + 1 windows of T + 4 floats of the previous residual, so
+    tiles are shallowest at the last step; a block launches a producer warp
+    beside its computing threads."""
+    plan = _plan(n, depth)
+    assert plan.path == "streamed" and plan.blocks <= H100_SMS
+    assert plan.block_threads == plan.threads + 32 <= fused_arnoldi.MAX_BLOCK_THREADS
+    assert 4 * (depth + 1) * plan.rows > H100_SMEM  # the block's slice would not fit
+    assert plan.tile_rows(depth - 1) == tile_rows_last
+    for step in range(depth):
+        t = plan.tile_rows(step)
+        assert t % 4 == 0 and 4 <= t <= min(plan.rows, plan.threads)
+        assert (step + 2) * t <= plan.stage_floats  # a buffer holds the tile
+        ta, d = plan.tile_rows(step, "A"), plan.num_diags
+        assert ta % 4 == 0 and 4 <= ta <= t
+        assert (step + d) * ta + (d + 1) * (ta + 4) <= plan.stage_floats
+    assert fused_arnoldi.STAGES >= 2 and fused_arnoldi.STAGES * 4 * plan.stage_floats < plan.smem_bytes
+    assert plan.tile_rows(0) == min(plan.rows, plan.threads)  # the first steps: one row a thread
+
+
+@pytest.mark.parametrize(("n", "depth"), [(100, 7), (4_736, 12), (16_384, 250), (100_489, 90),
+                                          (1_000_000, 90), (1 << 20, 30)])
+@pytest.mark.parametrize("sms", [66, 114, 132])
+def test_launch_plan_gives_at_most_one_block_an_sm(n, depth, sms):
+    """One persistent, co-resident block an SM at most, covering n with
+    contiguous rows, within the card's shared memory; scratch for the slab."""
+    plan = _plan(n, depth, sms=sms)
+    assert plan.blocks <= sms * 1 and plan.threads == fused_arnoldi.THREADS
+    assert plan.block_threads <= fused_arnoldi.MAX_BLOCK_THREADS
+    assert plan.blocks * plan.rows >= n > (plan.blocks - 1) * plan.rows
+    assert plan.smem_bytes <= H100_SMEM
+    assert plan.partial_floats == (2 * depth + 3) * -(-plan.blocks // 4) * 4  # slabs padded to 16 bytes
+
+
+def test_launch_plan_refuses_what_the_kernel_cannot_run():
+    """No silent re-planning: a depth outside [1, n], an unknown option and
+    a card whose shared memory cannot hold a block's coefficients raise."""
+    with pytest.raises(ValueError, match="no K9 plan"):
+        _plan(16_384, 16_385)
+    with pytest.raises(ValueError, match="no K9 plan"):
+        _plan(16_384, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        _plan(16_384, 90, smem=8_192)
+    with pytest.raises(TypeError, match="Unexpected input"):
+        _plan(16_384, 90, "junk")
+
+
+@pytest.mark.parametrize(("n", "depth", "path"), [(9_216, 841, "streamed"), (9_216, 842, "direct"),
+                                                  (9_216, 1_000, "direct"), (1_000_000, 8_000, "direct"),
+                                                  (16_384, 16_384, "direct")])
+def test_launch_plan_runs_any_depth(n, depth, path):
+    """Past the depth whose deepest A tile would hold fewer than 32 rows
+    (842 at five diagonals on an H100) the plan takes the direct path: no
+    producer, no staging buffers, the basis read from device memory a row a
+    thread. No depth is refused. (9,216, 1,000) is [parity-arnoldi]'s deep
+    case."""
+    plan = _plan(n, depth)
+    assert plan.path == path
+    if path == "streamed":
+        assert plan.tile_rows(depth - 1, "A") == fused_arnoldi.MIN_TILE
+    else:
+        assert plan.stage_floats == 0 and plan.block_threads == plan.threads
+        assert all(plan.tile_rows(i, s) == min(plan.rows, plan.threads) for i in (0, depth - 1) for s in "AB")
+    assert plan.smem_bytes <= H100_SMEM - fused_arnoldi.SMEM_RESERVE

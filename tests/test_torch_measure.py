@@ -3,7 +3,7 @@
 K1's column split (``fused_gram.column_splits``), the report that holds
 a profiler's launch counts to the kernel registry's
 (``utils.timing.launch_report``), on a fake profiler table, and the Gram
-kernels' bounds as ``chip_smoke.py`` computes them.
+kernels' and K9's bounds as ``chip_smoke.py`` computes them.
 """
 
 import pytest
@@ -110,3 +110,31 @@ def test_k2_operands_pad_m_with_zero_columns(m, plain):
     want = fn("matern32", xs, ys, v2, u2)
     torch.testing.assert_close(fn("matern32", xs, ys, pv, pu), want,
                                rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize(
+    ("n", "depth", "reortho", "bound_ms", "by", "streamed_ms", "on_chip"),
+    [
+        (1_000_000, 90, "full", 0.502, "operations", 14.78, False),  # 49.5 GB: three sweeps of the basis a step
+        (1_000_000, 90, "none", 0.258, "operations", 9.895, False),  # two sweeps
+        (16_384, 90, "full", 0.0082, "operations", 0.2422, True),
+        (16_384, 90, "none", 0.00423, "operations", 0.1621, True),
+        (16_384, 250, "full", 0.0620, "operations", 1.846, True),
+        (100_489, 90, "full", 0.0505, "operations", 1.49, False),
+        (262_144, 250, "full", 0.992, "operations", 29.54, False),
+    ],
+)
+def test_arnoldi_bounds(n, depth, reortho, bound_ms, by, streamed_ms, on_chip):
+    """K9's bound as ``[timing-arnoldi]`` computes it, each array once, and
+    beside it the traffic of the streamed schedule (three reads of Q[:i+1]
+    a step with re-orthogonalisation, two without), which the card needs
+    only where the (K, n) basis exceeds its 132 x 227 KB of shared memory."""
+    cs = _chip_smoke()
+    got = cs._arnoldi_bounds(n, depth, reortho)
+    assert got["basis_on_chip"] is on_chip
+    assert got["bound_by"] == by
+    assert got["bound_ms"] == pytest.approx(bound_ms, rel=5e-3)
+    assert got["bound_ms_streamed"] == pytest.approx(streamed_ms, rel=5e-3)
+    assert got["bound_ms"] <= got["bound_ms_streamed"]
+    reads = 3 if reortho == "full" else 2
+    assert got["bytes_streamed"] - got["bound_bytes"] == 4 * reads * n * depth * (depth + 1) // 2
