@@ -24,16 +24,17 @@ Phases, in order:
      launch counts;
   6. DIA parity: K4 (``csrc/dia.cu``), K4 on the transpose (through the
      autograd backward) and K5 against their plain versions, offsets
-     (-1, 0, 1), (-130, -7, 0, 7, 130) with random values in every slot,
-     and the 2-D Laplacian's with its packed values, n in {16,384,
-     1,000,000, 1,048,576};
+     (-1, 0, 1), (-130, -7, 0, 7, 130), 65 and 100 diagonals with random
+     values in every slot, and the 2-D Laplacian's with its packed
+     values, n in {16,384, 1,000,000, 1,048,576};
   7. Lanczos parity: K6 and K7 (``csrc/lanczos_dia.cu``) against their
      plain versions (alphas, betas, basis, residual, dv, dvals for a
      seeded random cotangent) at (n, K) = (4,736, 12), (4,739, 12),
-     (16,384, 90), (1,048,576, 90) and on an exhausted Krylov space,
-     with each tolerance derived from the plain version's
-     float32-vs-float64 spread; the autograd Function equals the two
-     wrappers bit for bit;
+     (16,384, 90), (1,048,576, 90), on an exhausted Krylov space and on
+     K7's other plans (65 and 100 diagonals, offsets half way round,
+     n = 1,200,000 and 3,000,000), with each tolerance derived from the
+     plain version's float32-vs-float64 spread; the autograd Function
+     equals the two wrappers bit for bit; K7 bit for bit across two runs;
   8. the sparse slice: ``bench.py``'s flow through the port's entry
      points (the Laplacian on an m x m grid -> ``sparse_operator`` ->
      ``tridiag_dia_fused`` and the generic ``tridiag``), one VJP with the
@@ -42,8 +43,9 @@ Phases, in order:
      times;
   9. kernel times at the slices' shapes beside their bounds, their
      plain versions' times and (K4) one library call, each held to its
-     plain version again. K4 and K5 cycle through operand sets larger
-     than the L2 together, as the main path does;
+     plain version again, and K7's traffic (each array once, the parent
+     kernel's schedule, this one's). K4 and K5 cycle through operand sets
+     larger than the L2 together, as the main path does;
  10. Arnoldi parity: K9 (``csrc/arnoldi_dia.cu``) against its plain
      version (Q, H, residual, 1/|v0|) and the autograd Function (K9
      forward, adjoint over the transposed K4 and K5) against the plain
@@ -53,7 +55,9 @@ Phases, in order:
      (262,144, 250) (small tiles, v0 not 16-byte aligned) and (9,216,
      1,000) (the direct path, which reads the basis from device memory;
      held to the plain version on the leading 100 columns and to the
-     Arnoldi relation and orthonormality over all);
+     Arnoldi relation and orthonormality over all, once more with a plan
+     that keeps its coefficients in device memory), and at 100 and 65
+     diagonals;
      K9 bit for bit across two runs at (1,000,000, 90) and (16,384, 250);
  11. the Arnoldi slice: ``sparse_operator`` -> ``hessenberg`` (K = 90)
      and ``tridiag(reortho="full")`` (K = 10, 90, 250) at the 128 x 128
@@ -97,9 +101,10 @@ Phases, in order:
  20. halo parity: K11 (``csrc/halo_dia.cu``) on P in {1, 2, 8}
      partitions, one allocation each, NaN-poisoned receive buffers, two
      successive calls, against its plain version and K4 on the whole
-     vector, offsets (-1, 0, 1), (-130, -7, 0, 7, 130) and
-     (-1024, -1, 0, 1, 1024) with random values in every slot, n in
-     {16,384, 1,000,000, 1,048,576}; the Function's dv (K11 on the
+     vector, offsets (-1, 0, 1), (-130, -7, 0, 7, 130),
+     (-1024, -1, 0, 1, 1024), 65 and 100 diagonals with random values in
+     every slot, n in {16,384, 1,000,000, 1,048,576}, and n = 1,000 over
+     8 partitions with offsets +-63 (a halo wider than half the rows); the Function's dv (K11 on the
      transpose) against K4^T and dvals against K5 (bit for bit);
  21. the halo slice: the multi-device scaling benchmark's 5-diagonal
      operator at n = 2^20 -> ``parallel.sharded_dia_operator`` ->
@@ -148,9 +153,10 @@ TOL_K2 = 1e-3  # sums over millions of cells of both signs
 # (tests/test_ops/test_pallas_gram.py:23, :163).
 TOL_K3 = {"rbf": 1e-3, "matern12": 5e-2, "matern32": 1e-3}
 
-# DIA kernels (K4 and its transpose) vs plain: an output is a sum of
-# D <= 5 float32 products taken in another order, with fused
-# multiply-adds, so a few units in the last place of the largest term.
+# DIA kernels (K4 and its transpose) vs plain: an output is a sum of D
+# float32 products (D <= 100 here) in the same order, with fused
+# multiply-adds, so a few units in the last place of the largest partial
+# sum, over the largest output.
 TOL_DIA = 1e-5
 # K5 is one float32 product per slot on both sides: bit for bit.
 TOL_DVALS = 0.0
@@ -175,6 +181,11 @@ GRIDS = (128, 1024)
 # multiple of neither 128 nor 1024, the JAX kernels' tiling rules, and on
 # the card must still run every kernel of the path.
 SLICE_GRIDS = (128, 1000, 1024)
+# Operators of more than 64 diagonals (the DIA kernels took at most 64
+# before their offsets moved to device memory): a band of 65, and 100
+# spread over +-150.
+WIDE_65 = tuple(range(-32, 33))
+WIDE_100 = tuple(3 * k for k in range(-50, 51) if k)
 
 
 def _card_line() -> str:
@@ -684,7 +695,7 @@ def phase_timing(n, slice_counts, dgrads_counts, split_rows=50_000):
             bound_ms, by, old_bound_ms = _gram_bound(kernel[:2], n_rows * n, m, nbytes)
             shapes[(kernel, m)] = {
                 "m": m, "n_rows": n_rows, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": by, "bound_ms_all_fp32": old_bound_ms, "max_abs_err": err, "max_rel_err": rel,
+                "bound_by": by, "max_abs_err": err, "max_rel_err": rel,
                 "clocks": clocks,
             }
             print(f"  {kernel} {n_rows} x {n} m={m}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
@@ -713,7 +724,7 @@ def phase_timing(n, slice_counts, dgrads_counts, split_rows=50_000):
             "launches_per_step": [c[idx] for c in counts["per_step"]],
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "bound_ms_all_fp32": main["bound_ms_all_fp32"],
+            "bound_by": main["bound_by"],
             "library_ms": None,
             "n": n, "m": main_m,
             "by_m": [shapes[(kernel, m)] for m in kinds[kernel]],
@@ -751,6 +762,22 @@ def _tensor(rng, shape, device=None):
     return torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=device or DEVICE)
 
 
+def _symmetric_dia(rng, offsets, n):
+    """A symmetric DIA operator on ``offsets`` (closed under negation), its
+    values made on the card: N(0, 0.3^2) off the diagonal, each negative
+    offset's row the circular transpose of its positive one's, and
+    4 + U(0, 1) on the diagonal where one is stored. ``(DIAData, vals)``."""
+    offsets = tuple(sorted(offsets))
+    rows = {}
+    for d in offsets:
+        if d > 0:
+            rows[d] = 0.3 * _tensor(rng, n)
+            rows[-d] = torch.roll(rows[d], d)
+        elif d == 0:
+            rows[0] = 4.0 + torch.tensor(rng.random(n), dtype=torch.float32, device=DEVICE)
+    return _dia(offsets, n), torch.stack([rows[d] for d in offsets]).contiguous()
+
+
 def _spread_tol(spread):
     return max(SPREAD_FACTOR * spread, SPREAD_FLOOR)
 
@@ -765,7 +792,8 @@ def _report_spread(label, err, spread, failures):
 
 
 def phase_parity_dia(sizes=(16_384, 1_000_000, 1 << 20)):
-    """K4, K4 on the transpose (autograd backward) and K5 against their plain versions."""
+    """K4, K4 on the transpose (autograd backward) and K5 against their plain
+    versions, on 3 to 100 diagonals."""
     from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
 
     print("[parity-dia] DIA kernels vs plain versions on the card", flush=True)
@@ -778,6 +806,8 @@ def phase_parity_dia(sizes=(16_384, 1_000_000, 1 << 20)):
             ("(-1,0,1) random", (-1, 0, 1), None),
             ("(-130,-7,0,7,130) random", (-130, -7, 0, 7, 130), None),
             (f"laplacian {lap.offsets} packed", lap.offsets, lap_vals),
+            ("65 diagonals random", WIDE_65, None),
+            ("100 diagonals random", WIDE_100, None),
         ]
         for name, offsets, vals in cases:
             if vals is None:  # non-zero values in every slot, the wrapped ones too
@@ -848,17 +878,50 @@ def _lanczos_cases():
     v0 = torch.zeros(n, device=DEVICE)
     v0[7] = 1.0
     yield "exhausted (1.5 I, one-hot v0) n=16384 K=12", dia, torch.full((1, n), 1.5, device=DEVICE), v0, 12
+    # K7's other plans (ops/fused_lanczos.py adjoint_plan; the cases above
+    # take dvals resident and the state in registers): dvals streamed at 65
+    # diagonals and at 100 spread over +-250,150, offsets that reach half
+    # way round, and the state in device memory (more than 16 rows a
+    # thread) with dvals resident and streamed.
+    rng = np.random.default_rng(14)
+    wide = tuple(5_003 * k for k in range(-50, 51) if k)
+    half = (-(1 << 19) + 3, 0, (1 << 19) - 3)
+    for name, offsets, n, depth in (("65 diagonals", WIDE_65, 1 << 20, 30),
+                                    ("100 diagonals +-250,150", wide, 1 << 20, 12),
+                                    ("offsets +-(2^19 - 3)", half, 1 << 20, 12),
+                                    ("tridiagonal", (-1, 0, 1), 1_200_000, 12),
+                                    ("tridiagonal", (-1, 0, 1), 3_000_000, 12)):
+        dia, vals = _symmetric_dia(rng, offsets, n)
+        yield f"{name} n={n} K={depth}", dia, vals, _tensor(rng, n), depth
+
+
+# K7's plans that [parity-lanczos] must reach: (dvals path, state).
+K7_PLANS = {("resident", "registers"), ("streamed", "registers"),
+            ("resident", "device"), ("streamed", "device")}
+
+
+def _k7_plan(offsets, n, depth):
+    from lanczos_adjoints_tpu_torch.ops import fused_lanczos as fl
+    from lanczos_adjoints_tpu_torch.ops import native
+
+    return fl.adjoint_plan(n, depth, *native.device_limits(DEVICE), num_diags=len(offsets))
 
 
 def phase_parity_lanczos():
-    """K6 and K7 against their plain versions, tolerances from the f32-vs-f64 spread."""
+    """K6 and K7 against their plain versions, tolerances from the f32-vs-f64
+    spread, on every plan of K7; K7 twice on the same inputs, bit for bit."""
     from lanczos_adjoints_tpu_torch.ops import fused_lanczos as fl
 
     print("[parity-lanczos] fused Lanczos kernels vs plain versions on the card", flush=True)
-    failures = []
+    failures, plans = [], set()
     rng = np.random.default_rng(5)
     for name, dia, vals, v0, depth in _lanczos_cases():
         offsets, n = dia.offsets, dia.shape[0]
+        plan = _k7_plan(offsets, n, depth)
+        plans.add((plan.path, plan.state))
+        print(f"  K7 {name}: {plan.path} dvals ({plan.resident_diags} of {plan.num_diags} diagonals "
+              f"on chip), state in {plan.state}, "
+              f"{plan.blocks} blocks of {plan.threads} threads, {plan.rows} rows a block", flush=True)
         kernel = fl.lanczos_forward_rows(offsets, vals, v0, depth)
         plain = fl.lanczos_forward_plain(offsets, vals, v0, depth)
         exact = fl.lanczos_forward_plain(offsets, vals.double(), v0.double(), depth)
@@ -906,9 +969,32 @@ def phase_parity_lanczos():
         if not (same_fwd and same_bwd):
             failures.append(f"Function {name}")
         del kernel, plain, exact, got, want, cot, args, outputs, grads, direct
+    if plans < K7_PLANS:
+        failures.append(f"K7 plans not reached: {sorted(K7_PLANS - plans)}")
+    _k7_bitwise(failures)
     if failures:
         msg = f"{len(failures)} Lanczos parity checks failed: {failures[:5]}"
         raise RuntimeError(msg)
+
+
+def _k7_bitwise(failures):
+    """K7 twice on the same inputs at the 1024 x 1024 Laplacian, K = 90."""
+    from lanczos_adjoints_tpu_torch.ops import fused_lanczos as fl
+
+    rng = np.random.default_rng(15)
+    _mat, dia, vals = _laplacian(GRIDS[-1])
+    n = dia.shape[0]
+    xs, alphas, betas = fl.lanczos_forward_rows(dia.offsets, vals, _tensor(rng, n), DEPTH)
+    cot = _cotangent(rng, DEPTH, n)
+    args = (xs, alphas, betas, 1.0 / torch.linalg.vector_norm(xs[0]),
+            torch.cat([cot[0], cot[3][None]]), cot[1], torch.cat([cot[2], cot[4][None]]))
+    first = fl.lanczos_adjoint_rows(dia.offsets, vals, *args)
+    second = fl.lanczos_adjoint_rows(dia.offsets, vals, *args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"  K7 n={n} K={DEPTH}: two runs bit for bit {same}", flush=True)
+    if not same:
+        failures.append(f"K7 bitwise n={n}")
 
 
 def _one_vjp(estimate, v0, vals):
@@ -1124,6 +1210,26 @@ def _record(rows, failures, key, symbol, runs, plains, nbytes, ops, reps, plain_
           + (" ok" if ok else " FAIL"), flush=True)
 
 
+def _k7_traffic(n, num_diags, depth, plan):
+    """K7's bytes: each array once (what the function must move; the
+    bound), the parent kernel's schedule and this one's. The parent's three
+    sweeps a step moved (16 + 3D) vectors of 4n bytes (x, x_next, xi and
+    lam_next re-read in each sweep, xi written twice, lam written and read
+    back, dx, the values, the dvals read-modify-write; the D shifted reads
+    of lam counted once, as cache-served). This schedule moves x and dx
+    read, lam written and read back (its D shifted reads counted once), the
+    read-modify-write of the diagonals of dvals that stay in device memory,
+    and the values (D vectors) unless L2 holds them. Printed beside the
+    bound, never part of the kernels line."""
+    once = 4 * (2 * (depth + 1) + 2 * num_diags + 1) * n
+    parent = 4 * depth * (16 + 3 * num_diags) * n
+    step = 4 * n + 2 * (num_diags - plan.resident_diags) * n
+    rest = once - 4 * 2 * (depth + 1) * n  # the values once, dvals and dv written
+    return {"bytes_once": once, "bytes_parent_schedule": parent,
+            "bytes_schedule_vals_in_l2": 4 * depth * step + rest,
+            "bytes_schedule": 4 * depth * (step + num_diags * n) + rest - 4 * num_diags * n}
+
+
 def phase_timing_sparse(slices):
     """Per-launch times of K4-K7 at the sparse slice's shapes; their kernels-line entries."""
     from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
@@ -1184,6 +1290,17 @@ def phase_timing_sparse(slices):
                reps, 2,
                exact=lambda: fl.lanczos_adjoint_plain(offsets, vals.double(),
                                                       *(a.double() for a in args)))
+        plan = _k7_plan(offsets, n, DEPTH)
+        traffic = _k7_traffic(n, num_diags, DEPTH, plan)
+        gb, ms = ({key: v / 1e9 for key, v in traffic.items()},
+                  {key: 1e3 * v / PEAK_BYTES for key, v in traffic.items()})
+        print(f"    K7 n={n} ({plan.path} dvals, state in {plan.state}): each array once "
+              f"{gb['bytes_once']:.3f} GB ({ms['bytes_once']:.4f} ms at 3.35 TB/s); the parent's schedule "
+              f"{gb['bytes_parent_schedule']:.3f} GB ({ms['bytes_parent_schedule']:.4f} ms); "
+              f"this schedule {gb['bytes_schedule']:.3f} GB ({ms['bytes_schedule']:.4f} ms), "
+              f"{gb['bytes_schedule_vals_in_l2']:.3f} GB ({ms['bytes_schedule_vals_in_l2']:.4f} ms) "
+              f"with the values held in L2; K7 at {100 * ms['bytes_schedule'] / rows[('K7', n)]['ms']:.1f} % "
+              f"of this schedule's floor", flush=True)
         del xs, cot, args
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions in [timing-sparse]: {failures}")
@@ -1250,7 +1367,7 @@ ARNOLDI_MAIN = (1000, "hessenberg", 90, "full")
 # own generator, so every earlier case keeps its inputs.
 ARNOLDI_STREAMED = ((100_489, 90, "full"), (262_144, 250, "full"))
 ARNOLDI_MISALIGNED = 262_144  # the n of the case above whose v0 is misaligned
-# K = 1,000 at 96^2: K9's streamed steps from 836 on would stage tiles of
+# K = 1,000 at 96^2: K9's streamed steps from 837 on would stage tiles of
 # fewer than 32 rows, so the launch takes the direct path, whose sweeps read
 # the basis from device memory. So deep a basis
 # diverges from its plain version (their f32-vs-f64 spread is O(1)), so the
@@ -1258,6 +1375,14 @@ ARNOLDI_MISALIGNED = 262_144  # the n of the case above whose v0 is misaligned
 # columns and, over all columns, to the Arnoldi relation and the basis's
 # orthonormality, each within 10x the plain version's own (floor 1e-6).
 ARNOLDI_DEEP, ARNOLDI_DEEP_LEAD = (9_216, 1_000, "full"), 100
+# The same case through K9's C entry with a plan made for a block of
+# ARNOLDI_SMALL_SMEM bytes of shared memory: too few for the 2 x 1,000
+# coefficients, so the direct path keeps them in device memory (the plan
+# for a depth whose coefficients outgrow the card's shared memory).
+ARNOLDI_SMALL_SMEM = 12_000
+# (n, K, reortho, offsets) of [parity-arnoldi] beyond 64 diagonals: 100
+# resident at 128^2, 65 streamed at 2^20.
+ARNOLDI_WIDE = ((16_384, 12, "full", WIDE_100), (1 << 20, 30, "full", WIDE_65))
 # (n, K, reortho) at which K9 must give the same bits in two runs: the
 # main path's streamed shape and the deepest resident one.
 ARNOLDI_BITWISE = ((1_000_000, 90, "full"), (16_384, 250, "full"))
@@ -1312,6 +1437,11 @@ def _arnoldi_cases():
     n, depth, reortho = ARNOLDI_DEEP
     _mat, dia, vals = _laplacian(int(round(n ** 0.5)))
     yield f"laplacian n={n} K={depth} {reortho}", dia, vals, _tensor(rng, n), depth, reortho, "deep"
+    rng = np.random.default_rng(16)
+    for n, depth, reortho, offsets in ARNOLDI_WIDE:
+        dia, vals = _symmetric_dia(rng, offsets, n)
+        yield (f"{len(offsets)} diagonals n={n} K={depth} {reortho}", dia, vals, _tensor(rng, n),
+               depth, reortho, False)
 
 
 def _plain_dia_vjp(offsets, vals):
@@ -1341,6 +1471,8 @@ def phase_parity_arnoldi():
     plain forward and adjoint, with tolerances from the f32-vs-f64 spread."""
     from lanczos_adjoints_tpu_torch.ops import fused_arnoldi as fa
 
+    from lanczos_adjoints_tpu_torch.ops import native
+
     print("[parity-arnoldi] fused Arnoldi kernel vs plain version on the card", flush=True)
     failures = []
     rng = np.random.default_rng(8)
@@ -1350,8 +1482,20 @@ def phase_parity_arnoldi():
         plain = fa.hessenberg_dia_forward_plain(offsets, vals, v0, depth, reortho)
         torch.cuda.synchronize()
         if exhausted == "deep":
-            _k9_deep(name, offsets, vals, v0, depth, reortho, kernel, plain, failures)
-            del kernel, plain
+            exact = fa.hessenberg_dia_forward_plain(offsets, vals.double(), v0.double(), depth, reortho)
+            limits = native.device_limits(DEVICE)
+            plan = fa.launch_plan(n, depth, reortho, *limits, num_diags=len(offsets))
+            _k9_deep(name, offsets, vals, kernel, plain, exact, plan, failures)
+            # The plan for a block whose shared memory cannot hold the
+            # coefficients: the same case, its coefficients in device memory.
+            small = fa.launch_plan(n, depth, reortho, limits[0], ARNOLDI_SMALL_SMEM, num_diags=len(offsets))
+            kernel = fa.launch_forward(offsets, vals, v0, reortho, small)
+            torch.cuda.synchronize()
+            _k9_deep(f"{name}, {ARNOLDI_SMALL_SMEM} B of shared memory a block", offsets, vals, kernel,
+                     plain, exact, small, failures)
+            if small.coef_floats == 0:
+                failures.append(f"K9 {name}: the coefficients stayed in shared memory")
+            del kernel, plain, exact
             continue
         if exhausted:
             same = all(torch.equal(a, b) for a, b in zip(kernel, plain))
@@ -1399,12 +1543,10 @@ def _arnoldi_invariants(offsets, vals, q, h, res):
     return float(rel.abs().max() / aq.abs().max()), float(orth), int((nonzero == 0).sum())
 
 
-def _k9_deep(name, offsets, vals, v0, depth, reortho, kernel, plain, failures):
-    """K9 at ``ARNOLDI_DEEP`` against its plain version: the leading columns
-    by the spread rule, every column by the invariants."""
-    from lanczos_adjoints_tpu_torch.ops import fused_arnoldi as fa
-
-    exact = fa.hessenberg_dia_forward_plain(offsets, vals.double(), v0.double(), depth, reortho)
+def _k9_deep(name, offsets, vals, kernel, plain, exact, plan, failures):
+    """K9 at ``ARNOLDI_DEEP`` with ``plan`` against its plain version (f32
+    ``plain``, f64 ``exact``): the leading columns by the spread rule, every
+    column by the invariants."""
     lead = ARNOLDI_DEEP_LEAD
     for label, pick in (("Q", lambda r: r[0][:lead]), ("H", lambda r: r[1][:lead, :lead])):
         _report_spread(f"K9 {label} {name}, leading {lead} columns, kernel vs plain",
@@ -1417,8 +1559,9 @@ def _k9_deep(name, offsets, vals, v0, depth, reortho, kernel, plain, failures):
         print(f"  K9 {label} {name}: kernel {a:.3e}; plain f32 {b:.3e}; tol {tol:.3e} {status}", flush=True)
         if not a <= tol:
             failures.append(f"K9 {label} {name}")
-    plan = fa.launch_plan(v0.shape[0], depth, reortho, *fa.device_limits(DEVICE), num_diags=len(offsets))
-    print(f"  K9 {name}: {plan.path} path; zero rows kernel {got[2]}, plain {want[2]}", flush=True)
+    where = "device memory" if plan.coef_floats else "shared memory"
+    print(f"  K9 {name}: {plan.path} path, coefficients in {where}; zero rows kernel {got[2]}, "
+          f"plain {want[2]}", flush=True)
     if plan.path != "direct":
         failures.append(f"K9 {name}: the {plan.path} path, not the direct one")
 
@@ -1426,6 +1569,7 @@ def _k9_deep(name, offsets, vals, v0, depth, reortho, kernel, plain, failures):
 def _k9_bitwise(failures):
     """K9 twice on the same inputs at ``ARNOLDI_BITWISE``: the same bits."""
     from lanczos_adjoints_tpu_torch.ops import fused_arnoldi as fa
+    from lanczos_adjoints_tpu_torch.ops import native
 
     rng = np.random.default_rng(13)
     for n, depth, reortho in ARNOLDI_BITWISE:
@@ -1435,7 +1579,7 @@ def _k9_bitwise(failures):
         second = fa.hessenberg_dia_forward_rows(dia.offsets, vals, v0, depth, reortho)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(first, second))
-        plan = fa.launch_plan(n, depth, reortho, *fa.device_limits(DEVICE), num_diags=len(dia.offsets))
+        plan = fa.launch_plan(n, depth, reortho, *native.device_limits(DEVICE), num_diags=len(dia.offsets))
         print(f"  K9 n={n} K={depth} {reortho} ({plan.path}): two runs bit for bit {same}", flush=True)
         if not same:
             failures.append(f"K9 bitwise n={n} K={depth} {reortho}")
@@ -1702,10 +1846,11 @@ def phase_timing_arnoldi(slice_runs):
     """K9's device time per launch at [parity-arnoldi]'s shapes from 16,384 up,
     beside its bound and its plain version's time; its kernels-line entry."""
     from lanczos_adjoints_tpu_torch.ops import fused_arnoldi as fa
+    from lanczos_adjoints_tpu_torch.ops import native
 
     print("[timing-arnoldi] K9 at the slice's shapes (profiler and CUDA events); library: none",
           flush=True)
-    limits = fa.device_limits(DEVICE)
+    limits = native.device_limits(DEVICE)
     rows, failures = {}, []
     rng = np.random.default_rng(9)
     for n, depth, reortho in ARNOLDI_PARITY:
@@ -1730,10 +1875,7 @@ def phase_timing_arnoldi(slice_runs):
                                                               depth, reortho))
         row = rows[(n, depth, reortho)]
         row.update(n=n, depth=depth, reortho=reortho, path=plan.path, blocks=plan.blocks,
-                   threads=plan.threads, tile_rows_last=plan.tile_rows(depth - 1),
-                   bytes_streamed=bounds["bytes_streamed"], basis_on_chip=bounds["basis_on_chip"])
-        if not bounds["basis_on_chip"]:
-            row.update(bound_ms_streamed=bounds["bound_ms_streamed"])
+                   threads=plan.threads, tile_rows_last=plan.tile_rows(depth - 1))
         sweeps = (f"; the streamed schedule ({3 if reortho == 'full' else 2} reads of Q[:i+1] a step, "
                   f"no row kept on chip) {bounds['bytes_streamed'] / 1e9:.3f} GB, "
                   f"{bounds['bound_ms_streamed']:.4f} ms, the kernel at "
@@ -2162,21 +2304,24 @@ def phase_timing_bsr(slice_run):
         # The pack reads the tile stream once (the count off the structure),
         # gathers each value by its int64 slot, writes it and counts it.
         pack_bytes = 4 * bsr.num_slots + nnz * (8 + 4 + 4 + 4)
+        # Other bounds, printed beside the measured times only: the kernels
+        # line carries one bound, bound_ms.
+        pack_bound_ms = 1e3 * pack_bytes / PEAK_BYTES
+        tiles_bound_ms = 1e3 * 4 * (bsr.num_slots + bsr.block_cols.numel() + 2 * n) / PEAK_BYTES
         row.update(
             n=n, nnz=nnz, width=bsr.width, tile_mb=4 * bsr.num_slots / 1e6, csr_mb=nbytes / 1e6,
             ms_warm=row["ms"], library_ms_warm=row["library_ms"],
             # Cold, like for like: CUDA events around each call for both.
             ms_cold=cold_events, ms_cold_device=cold_device, library_ms_cold=lib_cold,
-            pack_ms=pack_ms, pack_bytes=pack_bytes, pack_bound_ms=1e3 * pack_bytes / PEAK_BYTES,
-            bound_ms_tiles=1e3 * 4 * (bsr.num_slots + bsr.block_cols.numel() + 2 * n) / PEAK_BYTES,
+            pack_ms=pack_ms, pack_bytes=pack_bytes,
         )
         device = "not measured" if cold_device is None else f"{cold_device:.4f} ms"
         print(f"  {key}: K10 cold {cold_events:.4f} ms by events ({device} on the device), warm "
               f"{row['ms_warm']:.4f} ms on the device; cuSPARSE cold {lib_cold:.4f} ms by events, warm "
               f"{row['library_ms_warm']:.4f} ms on the device; bound "
               f"{row['bound_ms']:.4f} ms on {nbytes / 1e6:.1f} MB (the tiles' bound "
-              f"{row['bound_ms_tiles']:.4f} ms on {row['tile_mb']:.1f} MB); pack {pack_ms:.4f} ms "
-              f"(bound {row['pack_bound_ms']:.4f} ms on {pack_bytes / 1e6:.1f} MB, one host sync)",
+              f"{tiles_bound_ms:.4f} ms on {row['tile_mb']:.1f} MB); pack {pack_ms:.4f} ms "
+              f"(bound {pack_bound_ms:.4f} ms on {pack_bytes / 1e6:.1f} MB, one host sync)",
               flush=True)
         del tiles, csr, vs, pack, packer, structure
     del flush
@@ -2224,8 +2369,11 @@ def _events_ms_sync(fn, reps):
 # JAX kernel's tiling); at n = 16,384, P = 8 and halo 1024 every row of a
 # partition is an edge row.
 HALO_SIZES = (16_384, 1_000_000, 1 << 20)
-HALO_OFFSETS = ((-1, 0, 1), (-130, -7, 0, 7, 130), (-1024, -1, 0, 1, 1024))
+HALO_OFFSETS = ((-1, 0, 1), (-130, -7, 0, 7, 130), (-1024, -1, 0, 1, 1024), WIDE_65, WIDE_100)
 HALO_PARTITIONS = (1, 2, 8)
+# (n, offsets, P) where the halo is wider than half the local rows (63 of
+# 125): a partition's first and last 63 rows overlap.
+HALO_WIDE = ((1000, (-63, 0, 63), 8), (1000, (-63, -62, -1, 0, 1, 62, 63), 8))
 # [slice-halo]: multihost_scaling's measured path at its defaults.
 HALO_N, HALO_BANDWIDTH, HALO_DEPTH, HALO_MESHES = 1 << 20, 1024, 30, (1, 2, 4, 8)
 HALO_KERNELS = ("halo_dia_matvec", "halo_dia_matvec_transposed", *DIA_KERNELS)
@@ -2243,42 +2391,44 @@ def phase_parity_halo():
     print("[parity-halo] K11 vs its plain version and K4, P partitions on one card", flush=True)
     failures = []
     rng = np.random.default_rng(13)
-    for n in HALO_SIZES:
-        for offsets in HALO_OFFSETS:
-            vals = _tensor(rng, (len(offsets), n))  # every slot, the wrapped ones too
-            for parts in HALO_PARTITIONS:
-                tag = f"n={n} offsets={offsets} P={parts}"
-                local_n = n // parts
-                exchange = fh.HaloExchange(parts, fh.halo_width(offsets))
-                recv = exchange.buffers(DEVICE)[0]
-                poisoned = all(bool(torch.isnan(r).all()) for r in recv)
-                own = {"memory_format": torch.contiguous_format}  # a new allocation each
-                vals_parts = [vals[:, p * local_n:(p + 1) * local_n].clone(**own) for p in range(parts)]
-                for call in (1, 2):
-                    v = _tensor(rng, n)
-                    v_parts = [v[p * local_n:(p + 1) * local_n].clone(**own) for p in range(parts)]
-                    got = torch.cat(fh.halo_dia_parts(offsets, v_parts, vals_parts, exchange))
-                    plain = fh.halo_dia_plain(offsets, v, vals, parts)
-                    k4 = fd.dia_matvec_rows(offsets, v, vals)
-                    torch.cuda.synchronize()
-                    finite = bool(torch.isfinite(got).all())
-                    if not (finite and poisoned):
-                        failures.append(f"{tag} call {call} finite={finite} poisoned={poisoned}")
-                    _report(f"K11 {tag} call {call} vs plain", _rel_err(got, plain), TOL_DIA, failures)
-                    _report(f"K11 {tag} call {call} vs K4", _rel_err(got, k4), TOL_DIA, failures)
-                # The operator's Function: dv by K11 on the transpose, dvals
-                # by the shift products, against K4^T and K5 on the whole vector.
-                op = parallel.sharded_dia_operator(_dia(offsets, n), parallel.device_mesh(parts))
-                x, u = _tensor(rng, n), _tensor(rng, n)
-                args = [x.clone().requires_grad_(), vals.clone().requires_grad_()]
-                dv, dvals = torch.autograd.grad(op(*args), args, u)
-                ref = [x.clone().requires_grad_(), vals.clone().requires_grad_()]
-                dv_k4, _ = torch.autograd.grad(fd.dia_matvec_fused(_dia(offsets, n), check_tiling=False)(*ref),
-                                               ref, u)
-                dvals_k5 = fd.dia_dvals_rows(offsets, x, u)
+    cases = [(n, offsets, HALO_PARTITIONS) for n in HALO_SIZES for offsets in HALO_OFFSETS]
+    cases += [(n, offsets, (parts,)) for n, offsets, parts in HALO_WIDE]
+    for n, offsets, partitions in cases:
+        vals = _tensor(rng, (len(offsets), n))  # every slot, the wrapped ones too
+        for parts in partitions:
+            shown = offsets if len(offsets) <= 7 else f"{len(offsets)} diagonals"
+            tag = f"n={n} offsets={shown} P={parts}"
+            local_n = n // parts
+            exchange = fh.HaloExchange(parts, fh.halo_width(offsets))
+            recv = exchange.buffers(DEVICE)[0]
+            poisoned = all(bool(torch.isnan(r).all()) for r in recv)
+            own = {"memory_format": torch.contiguous_format}  # a new allocation each
+            vals_parts = [vals[:, p * local_n:(p + 1) * local_n].clone(**own) for p in range(parts)]
+            for call in (1, 2):
+                v = _tensor(rng, n)
+                v_parts = [v[p * local_n:(p + 1) * local_n].clone(**own) for p in range(parts)]
+                got = torch.cat(fh.halo_dia_parts(offsets, v_parts, vals_parts, exchange))
+                plain = fh.halo_dia_plain(offsets, v, vals, parts)
+                k4 = fd.dia_matvec_rows(offsets, v, vals)
                 torch.cuda.synchronize()
-                _report(f"K11^T vjp dv {tag} vs K4^T", _rel_err(dv, dv_k4), TOL_DIA, failures)
-                _report(f"vjp dvals {tag} vs K5", _rel_err(dvals, dvals_k5), TOL_DVALS, failures)
+                finite = bool(torch.isfinite(got).all())
+                if not (finite and poisoned):
+                    failures.append(f"{tag} call {call} finite={finite} poisoned={poisoned}")
+                _report(f"K11 {tag} call {call} vs plain", _rel_err(got, plain), TOL_DIA, failures)
+                _report(f"K11 {tag} call {call} vs K4", _rel_err(got, k4), TOL_DIA, failures)
+            # The operator's Function: dv by K11 on the transpose, dvals
+            # by the shift products, against K4^T and K5 on the whole vector.
+            op = parallel.sharded_dia_operator(_dia(offsets, n), parallel.device_mesh(parts))
+            x, u = _tensor(rng, n), _tensor(rng, n)
+            args = [x.clone().requires_grad_(), vals.clone().requires_grad_()]
+            dv, dvals = torch.autograd.grad(op(*args), args, u)
+            ref = [x.clone().requires_grad_(), vals.clone().requires_grad_()]
+            dv_k4, _ = torch.autograd.grad(fd.dia_matvec_fused(_dia(offsets, n), check_tiling=False)(*ref),
+                                           ref, u)
+            dvals_k5 = fd.dia_dvals_rows(offsets, x, u)
+            torch.cuda.synchronize()
+            _report(f"K11^T vjp dv {tag} vs K4^T", _rel_err(dv, dv_k4), TOL_DIA, failures)
+            _report(f"vjp dvals {tag} vs K5", _rel_err(dvals, dvals_k5), TOL_DVALS, failures)
         del vals
     if failures:
         msg = f"{len(failures)} halo parity checks failed: {failures[:5]}"

@@ -57,7 +57,7 @@
 //   walk the rows backwards, so that a sweep starts on the rows the one
 //   before it read last, while they are still in L2;
 // - direct: where the deepest A tile would hold fewer than kMinTile rows
-//   (K >= 842 with D = 5 and an H100's shared memory), the
+//   (K >= 843 with D = 5 and an H100's shared memory), the
 //   streamed path's sweeps read Q and w from device memory themselves, a
 //   row a thread, with no producer and no staging: any depth runs.
 // The dot partials of a pass, one per block and coefficient, form an
@@ -84,10 +84,13 @@ namespace {
 // (the projection and the dots keep 16 and 8 loads in flight).
 constexpr int kMaxThreads = 544;
 constexpr int kStages = 2;  // staging buffers of the streamed path
-// Shared memory ahead of the coefficients: the staged offsets, one float
-// per warp for the block sums, and room for 8 mbarriers (8 bytes each).
+// Shared memory ahead of the coefficients: the staged offsets (num_diags
+// rounded up to 4), one float per warp for the block sums, and room for 8
+// mbarriers (8 bytes each).
 constexpr int kWarpSlots = 32;
-constexpr int kHeadFloats = lat::kMaxDiags + kWarpSlots + 16;
+__host__ __device__ inline int head_floats(int num_diags) {
+  return (num_diags + 3) / 4 * 4 + kWarpSlots + 16;
+}
 static_assert(2 * kStages + 1 <= 8, "the head holds 8 mbarriers");
 // The fewest rows of a staged tile: a launch whose deepest A tile would
 // hold fewer takes the direct path.
@@ -95,20 +98,28 @@ constexpr int kMinTile = 32;
 // The paths, the kernel's template argument.
 constexpr int kResidentPath = 0, kStreamedPath = 1, kDirectPath = 2;
 
+using lat::block_total;
+using lat::grid_sync;
 using lat::guarded_div;
+using lat::slab_stride;
+using lat::sync_workers;
 using lat::warp_sum;
 
 // Floats for the coefficients (and, beside the second pass's, |w|^2).
 __host__ __device__ inline int padded_depth(int depth) { return (depth + 4) / 4 * 4; }
 
 // Floats of dynamic shared memory: the head, the coefficients c and the
-// dot accumulators (padded_depth each), the split sums (one per computing
-// thread), then the resident path's w (R) and basis slice (K x R), or the
-// other paths' q_i and w of a tile (one per computing thread each) and
-// the streamed path's kStages staging buffers of `stage` floats.
-// ops/fused_arnoldi.py `launch_plan` computes the same.
-__host__ __device__ inline size_t smem_floats(int depth, int threads, int rows, int path, int stage) {
-  const size_t head = kHeadFloats + 2 * static_cast<size_t>(padded_depth(depth)) + threads;
+// dot accumulators (padded_depth each; in device memory instead where
+// `coefs_on_chip` is false, the direct path at a depth whose coefficients
+// do not fit), the split sums (one per computing thread), then the
+// resident path's w (R) and basis slice (K x R), or the other paths' q_i
+// and w of a tile (one per computing thread each) and the streamed path's
+// kStages staging buffers of `stage` floats. ops/fused_arnoldi.py
+// `launch_plan` computes the same.
+__host__ __device__ inline size_t smem_floats(int depth, int threads, int rows, int path, int stage,
+                                              int num_diags, bool coefs_on_chip) {
+  const size_t head = head_floats(num_diags) +
+                      (coefs_on_chip ? 2 * static_cast<size_t>(padded_depth(depth)) : 0) + threads;
   if (path == kResidentPath) return head + static_cast<size_t>(depth + 1) * rows;
   return head + 2 * static_cast<size_t>(threads) +
          (path == kStreamedPath ? kStages * static_cast<size_t>(stage) : 0);
@@ -127,50 +138,12 @@ __host__ __device__ inline int tile_rows(int stage, int step, int num_diags, boo
   return t < threads ? t : threads;
 }
 
-// The computing threads' barrier (named barrier 1): the producer warp of
-// the streamed path never joins it.
-__device__ __forceinline__ void sync_workers(int threads) {
-  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
-}
-
-// Sum of v over the computing threads, in a fixed order.
-__device__ float block_total(float v, float* redw, int threads) {
-  v = warp_sum(v);
-  sync_workers(threads);  // the previous use of redw is finished
-  if (threadIdx.x % 32 == 0) redw[threadIdx.x / 32] = v;
-  sync_workers(threads);
-  float s = 0.0f;
-  for (int w = 0; w < threads / 32; ++w) s += redw[w];
-  return s;
-}
-
 // Sum of the per-block partials, the same in every block.
 __device__ float grid_total(const float* partials, float* redw, int threads) {
   float s = 0.0f;
   for (int b = threadIdx.x; b < gridDim.x; b += threads) s += __ldcg(partials + b);
   return block_total(s, redw, threads);
 }
-
-// The grid barrier of the computing threads: the grid is co-resident (a
-// cooperative launch), each block's arrival is one release add to a
-// counter that starts at 0, awaited by acquire loads, and `goal` (the same
-// in every thread) counts the arrivals of all barriers so far.
-__device__ void grid_sync(unsigned* counter, unsigned& goal, int threads) {
-  sync_workers(threads);
-  goal += gridDim.x;
-  if (threadIdx.x == 0) {
-    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(counter) : "memory");
-    unsigned seen = 0;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(counter) : "memory");
-    } while (static_cast<int>(goal - seen) > 0);
-  }
-  sync_workers(threads);
-}
-
-// The stride of a slab of per-block partials: the blocks rounded up to a
-// multiple of 4, the padding zero.
-__host__ __device__ inline int slab_stride(int blocks) { return (blocks + 3) / 4 * 4; }
 
 // c[j] = sum over blocks of part[j * stride + b], for j < count, one warp
 // a coefficient (four at a time, so that their loads are in flight
@@ -516,20 +489,34 @@ __device__ void walk(const Stream& k, const float* q, int n, int& s, int& sweeps
   }
 }
 
-template <int kPath>
+// kDeviceCoefs: the direct path at a depth whose coefficients do not fit
+// a block's shared memory keeps them in device memory. A template argument,
+// so that every other launch addresses them as shared memory.
+template <int kPath, bool kDeviceCoefs = false>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     arnoldi_forward_kernel(const float* __restrict__ vals, const float* __restrict__ v0,
                            float* q, float* h, float* res, float* inv_norm, float* wbuf,
-                           float* partials, unsigned* counter, int n, int num_diags,
-                           lat::DiaOffsets offs, int depth, int full, int rows, int stage) {
+                           float* partials, unsigned* counter, float* coefs, int n, int num_diags,
+                           const int* __restrict__ offsets, int depth, int full, int rows, int stage) {
   constexpr bool kResident = kPath == kResidentPath, kStreamed = kPath == kStreamedPath;
   extern __shared__ __align__(16) float smem[];
+  const int off_floats = (num_diags + 3) / 4 * 4;
   int* s_off = reinterpret_cast<int*>(smem);
-  float* redw = smem + lat::kMaxDiags;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lat::kMaxDiags + kWarpSlots);
-  float* c = smem + kHeadFloats;
+  float* redw = smem + off_floats;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + off_floats + kWarpSlots);
+  // The coefficients and dot accumulators in shared memory, or in the
+  // block's slice of device memory (kDeviceCoefs), read back by its own
+  // threads only after a barrier of the block.
+  float* c;
+  float* red;
+  if constexpr (kDeviceCoefs) {
+    c = coefs + 2 * static_cast<size_t>(padded_depth(depth)) * blockIdx.x;
+    red = smem + head_floats(num_diags);
+  } else {
+    c = smem + head_floats(num_diags);
+    red = c + 2 * padded_depth(depth);
+  }
   float* acc = c + padded_depth(depth);
-  float* red = acc + padded_depth(depth);
   // The streamed path's last warp is the producer; the others compute.
   const int threads = kStreamed ? static_cast<int>(blockDim.x) - 32 : static_cast<int>(blockDim.x);
   float* qrow = red + threads;  // streamed, direct: a tile's q_i and w
@@ -549,7 +536,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     mbar_init(k.gate, 1u);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  lat::stage_offsets(offs, num_diags, s_off);  // and a barrier of the whole block
+  lat::stage_offsets(offsets, num_diags, s_off);  // and a barrier of the whole block
   if (kStreamed && tid >= threads) {
     produce(k, q, vals, v0, wbuf, n, s_off, depth, full);
     return;
@@ -727,22 +714,13 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
 }  // namespace
 
-// The card's SMs and the shared memory a block may opt into, for the
-// host's launch plan. Returns a CUDA error code.
-extern "C" int lat_arnoldi_dia_device(int* sms, int* smem_per_block) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(smem_per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return err;
-}
-
 // vals: (num_diags, n); v0: (n,); q: (depth, n) basis rows; h: (depth,
 // depth); res: (n,); inv_norm: one float; wbuf: (2, n) scratch; partials:
 // (2 depth + 3) slab_stride(blocks) floats of scratch, 16-byte aligned;
-// counter: one unsigned, zero.
-// offsets: host array, each in [0, n). full: 1 for re-orthogonalisation.
+// counter: one unsigned, zero; coefs: null (the coefficients in shared
+// memory) or, on the direct path only, blocks x 2 padded_depth(depth)
+// floats of scratch, 16-byte aligned.
+// offsets: device int32 array, each in [0, n). full: 1 for re-orthogonalisation.
 // float32, contiguous. The plan (blocks, computing threads a block, rows
 // a block, path 0 resident / 1 streamed / 2 direct, stage floats, shared
 // bytes) comes from ops/fused_arnoldi.py `launch_plan`; it is validated,
@@ -757,8 +735,8 @@ extern "C" int lat_arnoldi_dia_device(int* sms, int* smem_per_block) {
 // launch. The streamed path launches one producer warp beyond `threads`.
 extern "C" int lat_arnoldi_dia_forward(const float* vals, const float* v0, float* q, float* h,
                                        float* res, float* inv_norm, float* wbuf,
-                                       float* partials, unsigned* counter, int n, int num_diags,
-                                       const int* offsets, int depth, int full, int blocks,
+                                       float* partials, unsigned* counter, float* coefs, int n,
+                                       int num_diags, const int* offsets, int depth, int full, int blocks,
                                        int threads, int rows, int path, int stage,
                                        int smem_bytes, void* stream) {
   if (!lat::valid_shape(n, num_diags) || depth < 1 || depth > n) return cudaErrorInvalidValue;
@@ -777,7 +755,9 @@ extern "C" int lat_arnoldi_dia_forward(const float* vals, const float* v0, float
   if (misaligned(partials) || (streamed && n % 4 == 0 && (misaligned(vals) || misaligned(v0) ||
                                                           misaligned(q) || misaligned(wbuf))))
     return cudaErrorInvalidValue;
-  const size_t need = sizeof(float) * smem_floats(depth, threads, rows, path, stage);
+  if (coefs != nullptr && (path != kDirectPath || misaligned(coefs))) return cudaErrorInvalidValue;
+  const size_t need =
+      sizeof(float) * smem_floats(depth, threads, rows, path, stage, num_diags, coefs == nullptr);
   if (smem_bytes < 0 || need != static_cast<size_t>(smem_bytes)) return cudaErrorInvalidValue;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -788,15 +768,15 @@ extern "C" int lat_arnoldi_dia_forward(const float* vals, const float* v0, float
   if (blocks > sms) return cudaErrorInvalidValue;
   auto kernel = path == kResidentPath   ? &arnoldi_forward_kernel<kResidentPath>
                 : path == kStreamedPath ? &arnoldi_forward_kernel<kStreamedPath>
-                                        : &arnoldi_forward_kernel<kDirectPath>;
+                : coefs == nullptr      ? &arnoldi_forward_kernel<kDirectPath>
+                                        : &arnoldi_forward_kernel<kDirectPath, true>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block_threads, smem_bytes);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  lat::DiaOffsets offs = lat::offsets_from_host(offsets, num_diags);
-  void* args[] = {&vals, &v0, &q, &h, &res, &inv_norm, &wbuf, &partials, &counter, &n,
-                  &num_diags, &offs, &depth, &full, &rows, &stage};
+  void* args[] = {&vals, &v0, &q, &h, &res, &inv_norm, &wbuf, &partials, &counter, &coefs, &n,
+                  &num_diags, &offsets, &depth, &full, &rows, &stage};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(blocks),
                                     dim3(block_threads), args, static_cast<size_t>(smem_bytes),
                                     static_cast<cudaStream_t>(stream));

@@ -32,9 +32,9 @@ constexpr int kThreads = 256;
 __global__ void __launch_bounds__(kThreads)
     dia_matvec_kernel(const float* __restrict__ x, const float* __restrict__ vals,
                       float* __restrict__ out, int n, int num_diags,
-                      lat::DiaOffsets offs) {
-  __shared__ int s_off[lat::kMaxDiags];
-  lat::stage_offsets(offs, num_diags, s_off);
+                      const int* __restrict__ offsets) {
+  extern __shared__ int s_off[];
+  lat::stage_offsets(offsets, num_diags, s_off);
   const int stride = gridDim.x * blockDim.x;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     float acc = 0.0f;
@@ -48,9 +48,9 @@ __global__ void __launch_bounds__(kThreads)
 __global__ void __launch_bounds__(kThreads)
     dia_dvals_kernel(const float* __restrict__ x, const float* __restrict__ u,
                      float* __restrict__ dvals, int n, int num_diags,
-                     lat::DiaOffsets offs) {
-  __shared__ int s_off[lat::kMaxDiags];
-  lat::stage_offsets(offs, num_diags, s_off);
+                     const int* __restrict__ offsets) {
+  extern __shared__ int s_off[];
+  lat::stage_offsets(offsets, num_diags, s_off);
   const int stride = gridDim.x * blockDim.x;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const float ui = u[i];
@@ -69,14 +69,17 @@ int grid_for(int n) {
 }  // namespace
 
 // x: (n,), vals: (num_diags, n), out: (n,); float32, contiguous.
-// offsets: host array of num_diags offsets, each in [0, n).
+// offsets: device int32 array of num_diags offsets, each in [0, n).
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // a shape the kernel does not take, without launching).
 extern "C" int lat_dia_matvec(const float* x, const float* vals, float* out, int n,
                               int num_diags, const int* offsets, void* stream) {
   if (!lat::valid_shape(n, num_diags)) return cudaErrorInvalidValue;
-  dia_matvec_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, vals, out, n, num_diags, lat::offsets_from_host(offsets, num_diags));
+  const size_t smem = lat::offsets_bytes(num_diags);
+  const cudaError_t err = lat::allow_smem(dia_matvec_kernel, smem);
+  if (err != cudaSuccess) return err;
+  dia_matvec_kernel<<<grid_for(n), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, vals, out, n, num_diags, offsets);
   return cudaGetLastError();
 }
 
@@ -84,7 +87,10 @@ extern "C" int lat_dia_matvec(const float* x, const float* vals, float* out, int
 extern "C" int lat_dia_dvals(const float* x, const float* u, float* dvals, int n,
                              int num_diags, const int* offsets, void* stream) {
   if (!lat::valid_shape(n, num_diags)) return cudaErrorInvalidValue;
-  dia_dvals_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, u, dvals, n, num_diags, lat::offsets_from_host(offsets, num_diags));
+  const size_t smem = lat::offsets_bytes(num_diags);
+  const cudaError_t err = lat::allow_smem(dia_dvals_kernel, smem);
+  if (err != cudaSuccess) return err;
+  dia_dvals_kernel<<<grid_for(n), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, u, dvals, n, num_diags, offsets);
   return cudaGetLastError();
 }

@@ -1,36 +1,25 @@
-// Shared pieces of the DIA kernels (csrc/dia.cu, csrc/lanczos_dia.cu).
+// Shared pieces of the DIA kernels (csrc/dia.cu, csrc/lanczos_dia.cu,
+// csrc/arnoldi_dia.cu, csrc/halo_dia.cu).
 //
 // A DIA operator of n rows stores diagonal k row-aligned in vals[k, :],
 // and its product is circular:
 //   out[i] = sum_k vals[k, i] * x[(i + d_k) mod n],
 // the semantics of the JAX package's roll-based `dia_matvec_fn`.
-// The host passes each offset already reduced to [0, n), so one
-// conditional subtraction wraps an index.
+// The offsets travel in a device int32 array of num_diags entries that the
+// host builds once per operator (ops/native.py `offsets_arg`), each already
+// reduced to [0, n), so one conditional subtraction wraps an index. A
+// kernel stages them in dynamic shared memory, so any number of diagonals
+// runs.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace lat {
 
-constexpr int kMaxDiags = 64;  // dia_max_diags of ops/sparse.py
-
-// Offsets travel into a kernel by value (kernel parameter space).
-struct DiaOffsets {
-  int d[kMaxDiags];
-};
-
-inline DiaOffsets offsets_from_host(const int* host, int num_diags) {
-  DiaOffsets offs{};
-  for (int k = 0; k < num_diags; ++k) offs.d[k] = host[k];
-  return offs;
-}
-
 // Copy the offsets into shared memory once per block, so the per-row
-// loops index them dynamically without a local-memory copy of the
-// parameter struct.
-__device__ inline void stage_offsets(const DiaOffsets& offs, int num_diags,
-                                     int* s_off) {
-  for (int k = threadIdx.x; k < num_diags; k += blockDim.x) s_off[k] = offs.d[k];
+// loops index them from there.
+__device__ inline void stage_offsets(const int* __restrict__ offsets, int num_diags, int* s_off) {
+  for (int k = threadIdx.x; k < num_diags; k += blockDim.x) s_off[k] = __ldg(offsets + k);
   __syncthreads();
 }
 
@@ -40,7 +29,22 @@ __device__ inline int wrap(int i, int shift, int n) {
 }
 
 inline bool valid_shape(int n, int num_diags) {
-  return n > 0 && n <= (1 << 30) && num_diags > 0 && num_diags <= kMaxDiags;
+  return n > 0 && n <= (1 << 30) && num_diags > 0;
+}
+
+// Bytes of shared memory that hold num_diags staged offsets, rounded up to
+// 16 so that what follows them stays 16-byte aligned.
+inline size_t offsets_bytes(int num_diags) {
+  return (static_cast<size_t>(num_diags) * sizeof(int) + 15) / 16 * 16;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory (an opt-in above
+// 48 KB). Returns a CUDA error code.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace lat

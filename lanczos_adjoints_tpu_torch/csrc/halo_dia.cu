@@ -28,9 +28,12 @@
 //   2. interior sweep: rows [halo, local_n - halo), whose stencil stays
 //      inside v_p, as K4 computes them (the overlap window of the TPU
 //      kernel);
-//   3. edge fix-up: a block that owns any of the 2 halo edge rows
+//   3. edge fix-up: a block that owns any of the edge rows (the first
+//      and the last `halo` rows, min(2 halo, local_n) in all: where
+//      2 halo > local_n they overlap and every row is an edge row)
 //      acquires its two flags and computes those rows straight from
-//      ext_p, reading the received entries through L2 (__ldcg).
+//      ext_p, reading the received entries of both sides through L2
+//      (__ldcg).
 // The epoch is a counter of the caller's, one per call: a flag is never
 // reset, a receiver waits until its flag has reached the call's epoch
 // (a signed difference, so the count may wrap), and the receive buffers
@@ -77,10 +80,10 @@ __device__ inline bool reached(unsigned flag, unsigned epoch) {
 // Flags of a partition: [side] (set by the neighbour on that side).
 __global__ void __launch_bounds__(kThreads)
     halo_dia_kernel(PartPtrs ptrs, float* const* recv, unsigned* const* flags, int parts,
-                    int local_n, long long ld, int halo, int num_diags, lat::DiaOffsets offs,
-                    unsigned epoch) {
-  __shared__ int s_off[lat::kMaxDiags];
-  lat::stage_offsets(offs, num_diags, s_off);
+                    int local_n, long long ld, int halo, int num_diags,
+                    const int* __restrict__ offsets, unsigned epoch) {
+  extern __shared__ int s_off[];
+  lat::stage_offsets(offsets, num_diags, s_off);
   const int per_part = gridDim.x / parts;
   const int p = blockIdx.x / per_part;
   const int b = blockIdx.x % per_part;
@@ -120,8 +123,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // 3. Edge fix-up: edge e < halo is row e, edge e >= halo is row
-  // local_n - 2 halo + e. A block waits only if it owns an edge row.
-  const int edges = 2 * halo;
+  // local_n - edges + e (every row once where 2 halo > local_n). A block
+  // waits only if it owns an edge row.
+  const int edges = 2 * halo < local_n ? 2 * halo : local_n;
   if (b * blockDim.x >= edges) return;
   if (threadIdx.x == 0) {
     while (!reached(load_acquire(flags[p] + 0), epoch)) __nanosleep(32);
@@ -149,8 +153,9 @@ __global__ void __launch_bounds__(kThreads)
 // v_p (local_n,), vals_p (num_diags rows of local_n, row stride ld >=
 // local_n) and out_p (local_n,); float32. recv, flags: device tables of
 // `parts` pointers to each partition's receive buffer (2 x 2 x halo
-// floats) and its two flags (zero before the first call). offsets: host
-// array of num_diags signed offsets, |d_k| <= halo. epoch: the call's
+// floats) and its two flags (zero before the first call). offsets_host:
+// host array of num_diags signed offsets, |d_k| <= halo <= local_n;
+// offsets: the same on the device. epoch: the call's
 // count, never the previous call's. Returns the launch's CUDA error code
 // (cudaErrorInvalidValue for a shape the kernel does not take, without
 // launching; cudaErrorCooperativeLaunchTooLarge when the card cannot hold
@@ -158,21 +163,23 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int lat_halo_dia_matvec(const float* const* v, const float* const* vals,
                                    float* const* out, float* const* recv,
                                    unsigned* const* flags, int parts, int local_n, int ld,
-                                   int halo, int num_diags, const int* offsets,
-                                   unsigned epoch, void* stream) {
+                                   int halo, int num_diags, const int* offsets_host,
+                                   const int* offsets, unsigned epoch, void* stream) {
   const long long n = static_cast<long long>(parts) * local_n;
   if (parts < 1 || parts > kMaxParts || local_n < 1 || n > (1 << 30) || halo < 1 ||
-      2 * halo > local_n || ld < local_n || num_diags < 1 || num_diags > lat::kMaxDiags)
+      halo > local_n || ld < local_n || num_diags < 1)
     return cudaErrorInvalidValue;
   for (int k = 0; k < num_diags; ++k) {
-    if (offsets[k] > halo || offsets[k] < -halo) return cudaErrorInvalidValue;
+    if (offsets_host[k] > halo || offsets_host[k] < -halo) return cudaErrorInvalidValue;
   }
+  const size_t smem = lat::offsets_bytes(num_diags);
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess) err = lat::allow_smem(halo_dia_kernel, smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, halo_dia_kernel, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, halo_dia_kernel, kThreads, smem);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
   const int need = (local_n + kThreads - 1) / kThreads;
@@ -185,12 +192,11 @@ extern "C" int lat_halo_dia_matvec(const float* const* v, const float* const* va
     ptrs.vals[p] = vals[p];
     ptrs.out[p] = out[p];
   }
-  lat::DiaOffsets offs = lat::offsets_from_host(offsets, num_diags);
   long long ld_wide = ld;
   void* args[] = {&ptrs, &recv, &flags, &parts, &local_n, &ld_wide,
-                  &halo, &num_diags, &offs, &epoch};
+                  &halo, &num_diags, &offsets, &epoch};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(halo_dia_kernel),
-                                    dim3(per_part * parts), dim3(kThreads), args, 0,
+                                    dim3(per_part * parts), dim3(kThreads), args, smem,
                                     static_cast<cudaStream_t>(stream));
   return err != cudaSuccess ? err : cudaGetLastError();
 }

@@ -16,7 +16,9 @@ resident in shared memory (small n) or the basis streamed through staged
 tiles, three sweeps a step with re-orthogonalisation and two without, or,
 where the deepest staged tile would be shallower than ``MIN_TILE`` rows,
 the same sweeps reading the basis from device memory a row a thread (the
-direct path), so that any depth runs.
+direct path), so that any depth runs; where even the direct path's 2 x
+depth coefficients do not fit in a block's shared memory, it keeps them
+in device memory (``coef_floats`` of scratch the wrapper allocates).
 
 ``hessenberg_dia_fused`` is the drop-in ``krylov.arnoldi.hessenberg`` for
 DIA operators: an autograd Function whose forward is K9 and whose
@@ -28,7 +30,6 @@ and no forward K4. The JAX package takes the XLA roll matvec there, which
 on the card would be a plain version on CUDA tensors.
 """
 
-import ctypes
 import dataclasses
 
 import torch
@@ -44,10 +45,6 @@ LANES = 128  # the JAX kernel's lane width, kept for its n % 128 rule
 THREADS = 512  # a K9 block's computing threads (the streamed path adds a producer warp)
 MAX_BLOCK_THREADS = 544  # kMaxThreads in csrc/arnoldi_dia.cu
 STAGES = 2  # K9's staging buffers on the streamed path (kStages)
-# Shared memory of a K9 block ahead of its coefficients (kHeadFloats in
-# csrc/arnoldi_dia.cu): the staged offsets, one float per warp and eight
-# mbarriers.
-HEAD_FLOATS = native.MAX_DIAGS + 32 + 16
 SMEM_RESERVE = 1024  # bytes of a block's shared memory the plan leaves free
 MIN_TILE = 32  # kMinTile: the fewest rows of a staged tile
 PATHS = ("resident", "streamed", "direct")  # the kernel's path argument, by index
@@ -72,6 +69,7 @@ class LaunchPlan:
     depth: int
     num_diags: int
     sweeps: int
+    coef_floats: int = 0  # the direct path's coefficients in device memory, else 0
 
     @property
     def block_threads(self) -> int:
@@ -98,19 +96,30 @@ def _staged_rows(stage, step, num_diags, a, rows, threads):
     return min(rows, threads, t // 4 * 4)
 
 
-def _smem_bytes(depth, threads, rows, path, stage_floats):
+def head_floats(num_diags):
+    """Shared memory of a K9 block ahead of its coefficients (``head_floats``
+    in csrc/arnoldi_dia.cu): the staged offsets (a multiple of 4), one float
+    per warp and eight mbarriers."""
+    return -(-num_diags // 4) * 4 + 32 + 16
+
+
+def _padded_depth(depth):
+    return (depth + 4) // 4 * 4
+
+
+def _smem_bytes(depth, threads, rows, path, stage_floats, num_diags, coefs_on_chip=True):
     """The kernel's ``smem_floats`` in bytes."""
-    head = HEAD_FLOATS + 2 * ((depth + 4) // 4 * 4) + threads
+    head = head_floats(num_diags) + (2 * _padded_depth(depth) if coefs_on_chip else 0) + threads
     if path == "resident":
         return 4 * (head + (depth + 1) * rows)
     return 4 * (head + 2 * threads + (STAGES * stage_floats if path == "streamed" else 0))
 
 
-def stage_floats(depth, threads, rows, budget):
+def stage_floats(depth, threads, rows, budget, num_diags):
     """Floats of each of the streamed path's ``STAGES`` buffers: as large as
     the ``budget`` bytes of shared memory left by the rest of its layout
     allow, a multiple of 4."""
-    free = (budget - _smem_bytes(depth, threads, rows, "streamed", 0)) // 4
+    free = (budget - _smem_bytes(depth, threads, rows, "streamed", 0, num_diags)) // 4
     return max(0, free // STAGES // 4 * 4)
 
 
@@ -127,8 +136,10 @@ def launch_plan(n, depth, reortho, sms, smem_per_block, *, num_diags):
     staging buffers as large as the rest of the shared memory allows, else
     (its deepest A tile would hold fewer than ``MIN_TILE`` rows, or than
     the block's rows where those are fewer) the direct path; any depth
-    runs. A card whose shared memory cannot hold a block's coefficients
-    raises ``ValueError``.
+    runs: where the direct path's coefficients do not fit beside the rest
+    of its layout, they go to device memory (``coef_floats``, 2 x depth
+    rounded up a block). A card whose shared memory cannot hold even that
+    layout raises ``ValueError``.
     """
     arnoldi.check_option(reortho)
     if not 0 < depth <= n:
@@ -137,35 +148,20 @@ def launch_plan(n, depth, reortho, sms, smem_per_block, *, num_diags):
     rows = -(-(-(-n // sms)) // 4) * 4
     blocks = -(-n // rows)
     budget = smem_per_block - SMEM_RESERVE
-    path, stage = "resident", 0
-    if _smem_bytes(depth, THREADS, rows, path, 0) > budget:
-        path, stage = "streamed", stage_floats(depth, THREADS, rows, budget)
+    path, stage, coefs = "resident", 0, True
+    if _smem_bytes(depth, THREADS, rows, path, 0, num_diags) > budget:
+        path, stage = "streamed", stage_floats(depth, THREADS, rows, budget, num_diags)
         if _staged_rows(stage, depth - 1, num_diags, True, rows, THREADS) < min(MIN_TILE, rows):
             path, stage = "direct", 0
-    smem = _smem_bytes(depth, THREADS, rows, path, stage)
+            coefs = _smem_bytes(depth, THREADS, rows, path, 0, num_diags) <= budget
+    smem = _smem_bytes(depth, THREADS, rows, path, stage, num_diags, coefs)
     if smem > budget:
         msg = f"K9 needs {smem} bytes of shared memory a block at depth {depth}; the card has {budget}"
         raise ValueError(msg)
     return LaunchPlan(path=path, blocks=blocks, threads=THREADS, rows=rows, stage_floats=stage,
                       smem_bytes=smem, partial_floats=(2 * depth + 3) * -(-blocks // 4) * 4, depth=depth,
-                      num_diags=num_diags, sweeps=3 if reortho == "full" else 2)
-
-
-_DEVICE_LIMITS = {}
-
-
-def device_limits(device):
-    """``(SMs, opt-in shared memory bytes a block)`` of a CUDA device."""
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
-    if index not in _DEVICE_LIMITS:
-        sms, smem = ctypes.c_int(0), ctypes.c_int(0)
-        with torch.cuda.device(index):
-            lib = native.library(ARNOLDI_FORWARD.source)
-            native.check(lib.lat_arnoldi_dia_device(ctypes.addressof(sms), ctypes.addressof(smem)),
-                         "lat_arnoldi_dia_device")
-        _DEVICE_LIMITS[index] = (sms.value, smem.value)
-    return _DEVICE_LIMITS[index]
+                      num_diags=num_diags, sweeps=3 if reortho == "full" else 2,
+                      coef_floats=0 if coefs else 2 * _padded_depth(depth) * blocks)
 
 
 def hessenberg_dia_forward_plain(offsets, vals, v0, depth, reortho):
@@ -211,7 +207,15 @@ def hessenberg_dia_forward_rows(offsets, vals, v0, depth, reortho):
     if device.type == "cpu":
         return hessenberg_dia_forward_plain(offsets, vals, v0, depth, reortho)
     with torch.cuda.device(device):
-        plan = launch_plan(n, depth, reortho, *device_limits(device), num_diags=len(offsets))
+        plan = launch_plan(n, depth, reortho, *native.device_limits(device), num_diags=len(offsets))
+        return launch_forward(offsets, vals, v0, reortho, plan)
+
+
+def launch_forward(offsets, vals, v0, reortho, plan):
+    """K9 on CUDA tensors with the given ``plan`` (``launch_plan``'s, or one
+    made for another card's limits); the kernel validates it."""
+    device, n, depth = v0.device, v0.shape[0], plan.depth
+    with torch.cuda.device(device):
         # The streamed path's bulk copies read 16-byte aligned rows.
         vals, v0 = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (vals, v0))
 
@@ -220,11 +224,13 @@ def hessenberg_dia_forward_rows(offsets, vals, v0, depth, reortho):
 
         q, h, res, inv_norm = empty(depth, n), empty(depth, depth), empty(n), empty(1)
         wbuf, partials = empty(2, n), empty(plan.partial_floats)
+        coefs = empty(plan.coef_floats) if plan.coef_floats else None
         counter = torch.zeros(1, dtype=torch.int32, device=device)  # the grid barrier's
         ARNOLDI_FORWARD.launch(
             vals.data_ptr(), v0.data_ptr(), q.data_ptr(), h.data_ptr(), res.data_ptr(),
-            inv_norm.data_ptr(), wbuf.data_ptr(), partials.data_ptr(), counter.data_ptr(), n,
-            len(offsets), native.offsets_arg(offsets, n), depth, int(reortho == "full"),
+            inv_norm.data_ptr(), wbuf.data_ptr(), partials.data_ptr(), counter.data_ptr(),
+            None if coefs is None else coefs.data_ptr(), n,
+            len(offsets), native.offsets_arg(offsets, n, device).data_ptr(), depth, int(reortho == "full"),
             plan.blocks, plan.threads, plan.rows, PATHS.index(plan.path),
             plan.stage_floats, plan.smem_bytes, native.stream(device),
         )

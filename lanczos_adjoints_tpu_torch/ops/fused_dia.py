@@ -95,7 +95,7 @@ def dia_matvec_rows(offsets, x, vals, *, kernel=DIA_MATVEC):
     with torch.cuda.device(device):
         kernel.launch(
             x.data_ptr(), vals.data_ptr(), out.data_ptr(), n, len(offsets),
-            native.offsets_arg(offsets, n), native.stream(device),
+            native.offsets_arg(offsets, n, device).data_ptr(), native.stream(device),
         )
     return out
 
@@ -113,7 +113,7 @@ def dia_dvals_rows(offsets, x, u):
     with torch.cuda.device(device):
         DIA_DVALS.launch(
             x.data_ptr(), u.data_ptr(), dvals.data_ptr(), n, len(offsets),
-            native.offsets_arg(offsets, n), native.stream(device),
+            native.offsets_arg(offsets, n, device).data_ptr(), native.stream(device),
         )
     return dvals
 
@@ -154,9 +154,6 @@ def dia_matvec_fused(dia, *, check_tiling: bool = True):
     n = dia.shape[0]
     if check_tiling and n % (LANES * SUBLANES) != 0:
         msg = f"n={n} must be a multiple of {LANES * SUBLANES}"
-        raise ValueError(msg)
-    if len(offsets) > native.MAX_DIAGS:
-        msg = f"{len(offsets)} diagonals; the DIA kernels take at most {native.MAX_DIAGS}"
         raise ValueError(msg)
 
     def matvec(v, vals):

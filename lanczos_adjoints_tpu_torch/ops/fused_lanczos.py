@@ -9,6 +9,14 @@ Counterpart of ``lanczos_adjoints_tpu/ops/pallas_lanczos.py``:
   adjoint in one launch: per step the (xi, mu, nu, lambda) update,
   ``A lambda`` and ``dvals[k] += x * roll(lambda, -d_k)``; then ``dv``.
 
+K7's launch is planned here, by ``adjoint_plan`` from the card's SM count
+and shared memory, and only validated by the kernel: at most one block an
+SM, each owning contiguous rows, with the block's slice of ``dvals`` in
+shared memory for all K steps: all of it (``resident``) or, where it does
+not fit, as many of its diagonals as do, the others read-modify-written
+in device memory (``streamed``). The block's rows of the adjoint's state stay in registers
+where a thread owns at most ``SLOTS`` rows.
+
 Divides are guarded as in the JAX package: a zero norm (an exhausted
 Krylov space) truncates to zero vectors instead of 0 / 0. A wrapper
 launches its kernel for CUDA tensors and runs the plain PyTorch version
@@ -17,6 +25,8 @@ other path. ``tridiag_dia_fused`` is the drop-in for
 ``krylov.lanczos.tridiag(..., reortho="none")`` on DIA operators, with
 the forward as K6 and the backward as K7.
 """
+
+import dataclasses
 
 import torch
 
@@ -27,9 +37,78 @@ LANCZOS_FORWARD = native.Kernel("lanczos_dia_forward", "lanczos_dia", "lat_lancz
 LANCZOS_ADJOINT = native.Kernel("lanczos_dia_adjoint", "lanczos_dia", "lat_lanczos_dia_adjoint",
                                 device_symbol="lanczos_adjoint_kernel")
 LANES = 128  # the JAX kernel's lane width, kept for its n % 128 rule
-# Floats of per-block partials the wrappers allocate: three slots of up
-# to 8,192 blocks, well above the co-resident blocks of one card.
-_PARTIALS = 3 * 8192
+# Floats of per-block partials K6's wrapper allocates: two slots of up to
+# 8,192 blocks, well above the co-resident blocks of one card.
+_PARTIALS = 2 * 8192
+
+ADJOINT_THREADS = 512  # kAdjThreads in csrc/lanczos_dia.cu: K7's threads a block at most
+SLOTS = 16  # kSlots: rows a K7 thread keeps in registers
+WARP_SUMS = 3 * ADJOINT_THREADS // 32  # floats of K7's block sums
+SMEM_RESERVE = 1024  # bytes of a block's shared memory the plan leaves free
+
+
+@dataclasses.dataclass(frozen=True)
+class AdjointPlan:
+    """K7's launch: ``blocks`` of ``threads`` threads, block b owning rows
+    ``[b rows, (b + 1) rows)``, the first ``resident_diags`` diagonals of
+    the block's slice of dvals in shared memory for all steps and the
+    others accumulated in device memory. ``path`` is ``"resident"`` where
+    that is all of them, else ``"streamed"``; ``state`` is ``"registers"``
+    where a thread owns at most ``SLOTS`` rows, else ``"device"``."""
+
+    resident_diags: int
+    blocks: int
+    threads: int
+    rows: int
+    smem_bytes: int
+    partial_floats: int
+    depth: int
+    num_diags: int
+
+    @property
+    def path(self) -> str:
+        return "resident" if self.resident_diags == self.num_diags else "streamed"
+
+    @property
+    def state(self) -> str:
+        return "registers" if -(-self.rows // self.threads) <= SLOTS else "device"
+
+
+def _round4(count):
+    return -(-count // 4) * 4
+
+
+def adjoint_smem_bytes(num_diags, rows, resident_diags):
+    """The kernel's ``adjoint_smem_floats`` in bytes: the offsets, the block
+    sums and the ``resident_diags x rows`` slice of dvals."""
+    return 4 * (_round4(num_diags) + WARP_SUMS + resident_diags * rows)
+
+
+def adjoint_plan(n, depth, sms, smem_per_block, *, num_diags):
+    """K7's launch on a card of ``sms`` SMs and ``smem_per_block`` bytes of
+    opt-in shared memory a block.
+
+    One block an SM at most, each owning ``rows`` contiguous rows (n / sms
+    rounded up to a multiple of 4), of ``ADJOINT_THREADS`` threads (fewer,
+    a multiple of 32, where the rows are fewer). As many of the block's
+    diagonals of dvals in shared memory as fit, up to all of them; any n
+    and depth run.
+    """
+    if not 0 < depth <= n or num_diags < 1:
+        msg = f"no K7 plan for n={n}, depth={depth}, {num_diags} diagonals"
+        raise ValueError(msg)
+    rows = _round4(-(-n // sms))
+    blocks = -(-n // rows)
+    threads = min(ADJOINT_THREADS, -(-rows // 32) * 32)
+    budget = smem_per_block - SMEM_RESERVE
+    base = adjoint_smem_bytes(num_diags, rows, 0)
+    if base > budget:
+        msg = f"K7 needs {base} bytes of shared memory a block for {num_diags} diagonals; the card has {budget}"
+        raise ValueError(msg)
+    resident = min(num_diags, (budget - base) // (4 * rows))
+    smem = adjoint_smem_bytes(num_diags, rows, resident)
+    return AdjointPlan(resident_diags=resident, blocks=blocks, threads=threads, rows=rows, smem_bytes=smem,
+                       partial_floats=3 * _round4(blocks), depth=depth, num_diags=num_diags)
 
 
 def guarded_div(vec, norm):
@@ -111,7 +190,8 @@ def lanczos_forward_rows(offsets, vals, v0, depth):
         LANCZOS_FORWARD.launch(
             vals.data_ptr(), v0.data_ptr(), xs.data_ptr(), coef[0].data_ptr(),
             coef[1].data_ptr(), work.data_ptr(), partials.data_ptr(), _PARTIALS, n,
-            len(offsets), native.offsets_arg(offsets, n), depth, native.stream(device),
+            len(offsets), native.offsets_arg(offsets, n, device).data_ptr(), depth,
+            native.stream(device),
         )
     return xs, coef[0], coef[1]
 
@@ -137,18 +217,22 @@ def lanczos_adjoint_rows(offsets, vals, xs, alphas, betas, inv_norm, dxs, dalpha
         return lanczos_adjoint_plain(
             offsets, vals, xs, alphas, betas, inv_norm[0], dxs, dalphas, dbetas
         )
-    dv = torch.empty(n, dtype=torch.float32, device=device)
-    dvals = torch.empty_like(vals)
-    xi = torch.empty(n, dtype=torch.float32, device=device)
-    lam = torch.empty((2, n), dtype=torch.float32, device=device)
-    partials = torch.empty(_PARTIALS, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
+        plan = adjoint_plan(n, depth, *native.device_limits(device), num_diags=len(offsets))
+
+        def empty(*shape):
+            return torch.empty(shape, dtype=torch.float32, device=device)
+
+        dv, dvals, xi, lam, partials = empty(n), empty(*vals.shape), empty(n), empty(2, n), empty(
+            plan.partial_floats)
+        counter = torch.zeros(1, dtype=torch.int32, device=device)  # the grid barrier's
         LANCZOS_ADJOINT.launch(
             vals.data_ptr(), xs.data_ptr(), dxs.data_ptr(), alphas.data_ptr(),
             betas.data_ptr(), dalphas.data_ptr(), dbetas.data_ptr(), inv_norm.data_ptr(),
             dv.data_ptr(), dvals.data_ptr(), xi.data_ptr(), lam.data_ptr(),
-            partials.data_ptr(), _PARTIALS, n, len(offsets),
-            native.offsets_arg(offsets, n), depth, native.stream(device),
+            partials.data_ptr(), counter.data_ptr(), n, len(offsets),
+            native.offsets_arg(offsets, n, device).data_ptr(), depth, plan.blocks, plan.threads,
+            plan.rows, plan.resident_diags, plan.smem_bytes, native.stream(device),
         )
     return dv, dvals
 

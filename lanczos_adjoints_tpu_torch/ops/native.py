@@ -15,6 +15,7 @@ so that a run can hold the profiler's count to the registry's.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -28,7 +29,7 @@ CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
 SOURCES = (
     "gram_matvec", "gram_grads", "gram_dgrads", "dia", "lanczos_dia", "arnoldi_dia", "bsr",
-    "halo_dia",
+    "halo_dia", "device",
 )
 FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -41,7 +42,6 @@ FLAGS = (
     "-v",
 )
 
-MAX_DIAGS = 64  # kMaxDiags in csrc/dia_common.cuh
 MAX_PARTITIONS = 64  # kMaxParts in csrc/halo_dia.cu
 
 _P = ctypes.c_void_p
@@ -58,19 +58,20 @@ _SIGNATURES = {
     "lanczos_dia": {
         "lat_lanczos_dia_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P),
         "lat_lanczos_dia_adjoint": (
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P,
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
+            _I, _I, _I, _I, _I, _P,
         ),
     },
     "arnoldi_dia": {
-        "lat_arnoldi_dia_device": (_P, _P),
         "lat_arnoldi_dia_forward": (
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
         ),
     },
+    "device": {"lat_device_limits": (_P, _P)},
     "bsr": {"lat_bsr_spmv": (_P, _P, _P, _P, _P, _I, _I, _P)},
     "halo_dia": {
         "lat_halo_dia_matvec": (
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, ctypes.c_uint, _P,
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, ctypes.c_uint, _P,
         ),
     },
 }
@@ -218,9 +219,41 @@ def on_card(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
-def offsets_arg(offsets, n: int):
-    """DIA offsets as a C int array, each taken modulo n into [0, n)."""
-    if not 0 < len(offsets) <= MAX_DIAGS:
-        msg = f"{len(offsets)} diagonals; the DIA kernels take 1 to {MAX_DIAGS}"
-        raise ValueError(msg)
-    return (ctypes.c_int * len(offsets))(*(int(d) % n for d in offsets))
+def offsets_arg(offsets, n, device="cpu"):
+    """DIA offsets as an int32 tensor on ``device``, each taken modulo ``n``
+    into [0, n) (as given where ``n`` is None, for the halo kernel).
+
+    The kernels read them from device memory, so any number of diagonals
+    runs. Built once for each operator (offsets, n) and device, then served
+    from a bounded cache of the most recent operators, so a launch copies
+    nothing to the card.
+    """
+    if not offsets:
+        raise ValueError("a DIA operator needs at least one diagonal")
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _offsets_tensor(tuple(int(d) for d in offsets), n, device)
+
+
+@functools.lru_cache(maxsize=64)
+def _offsets_tensor(offsets, n, device):
+    values = offsets if n is None else tuple(d % n for d in offsets)
+    return torch.tensor(values, dtype=torch.int32, device=device)
+
+
+_DEVICE_LIMITS = {}
+
+
+def device_limits(device):
+    """``(SMs, opt-in shared memory bytes a block)`` of a CUDA device, for
+    the launch plans of K7 and K9."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _DEVICE_LIMITS:
+        sms, smem = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(index):
+            check(library("device").lat_device_limits(ctypes.addressof(sms), ctypes.addressof(smem)),
+                  "lat_device_limits")
+        _DEVICE_LIMITS[index] = (sms.value, smem.value)
+    return _DEVICE_LIMITS[index]

@@ -578,7 +578,7 @@ def sparse_operator(
     if fmt == "dia":
         dia = dia_pack(mat)
         if on_card:
-            # K4 and K5 take any n and up to 64 diagonals, so the JAX
+            # K4 and K5 take any n and any number of diagonals, so the JAX
             # package's TPU limits for its Pallas matvec (n % 1024, a VMEM
             # budget) do not apply.
             from lanczos_adjoints_tpu_torch.ops import fused_dia

@@ -142,9 +142,8 @@ def _pointers(tensors):
 
 def _check_ring(offsets, n: int, exchange: HaloExchange) -> int:
     """``local_n``; raises on what K11 does not take."""
-    if not 0 < len(offsets) <= native.MAX_DIAGS:
-        msg = f"{len(offsets)} diagonals; the DIA kernels take 1 to {native.MAX_DIAGS}"
-        raise ValueError(msg)
+    if not offsets:
+        raise ValueError("a DIA operator needs at least one diagonal")
     if n % exchange.n_partitions != 0:
         msg = f"n={n} must divide evenly over {exchange.n_partitions} partitions"
         raise ValueError(msg)
@@ -152,8 +151,8 @@ def _check_ring(offsets, n: int, exchange: HaloExchange) -> int:
     if halo != exchange.halo:
         msg = f"halo {halo} of the offsets, {exchange.halo} of the exchange"
         raise ValueError(msg)
-    if 2 * halo > local_n:
-        msg = f"the halo kernel needs 2 x halo <= local rows; halo {halo}, local rows {local_n}"
+    if halo > local_n:
+        msg = f"halo {halo} exceeds local rows {local_n}"
         raise ValueError(msg)
     return local_n
 
@@ -191,7 +190,8 @@ def _launch(kernel, offsets, v_parts, vals_parts, out_parts, exchange, local_n, 
             _pointers(v_parts), _pointers(vals_parts), _pointers(out_parts),
             recv_table.data_ptr(), flag_table.data_ptr(), exchange.n_partitions, local_n, ld,
             exchange.halo, len(offsets), (ctypes.c_int * len(offsets))(*offsets),
-            exchange.next_epoch(), native.stream(device),
+            native.offsets_arg(offsets, None, device).data_ptr(), exchange.next_epoch(),
+            native.stream(device),
         )
 
 
@@ -254,7 +254,7 @@ def sharded_dia_operator_fused(dia, mesh, *, axis: str = "rows", check_tiling: b
     sharded like ``v``. With ``check_tiling`` (the default) it raises
     where the JAX kernel does (``n % (P x 1024)``, local rows fewer than
     twice the halo rows); K11 itself takes any ``n % P == 0`` with
-    ``2 halo <= local_n``. ``symmetric`` keeps the JAX Pallas operator's
+    ``halo <= local_n``. ``symmetric`` keeps the JAX Pallas operator's
     VJP, which assumes a symmetric operator (``dv = A u``);
     ``sharded_dia_operator`` builds it with ``symmetric=False``. The
     closure carries no ``.dia_data`` tag: ``tridiag`` runs its generic

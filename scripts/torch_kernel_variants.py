@@ -1,8 +1,8 @@
-"""Time design variants of the port's K1, K2, K3, K9 and K10 kernels side by side on one GPU.
+"""Time design variants of the port's K1, K2, K3, K7, K9 and K10 kernels side by side on one GPU.
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc:
-``python3 scripts/torch_kernel_variants.py [--only k1,k2,k3,k9,k10] [--parent DIR]``
-(all five kernels unless ``--only`` names some). Each variant is the
+``python3 scripts/torch_kernel_variants.py [--only k1,k2,k3,k7,k9,k10] [--parent DIR]``
+(all six kernels unless ``--only`` names some). Each variant is the
 kernel's source under ``lanczos_adjoints_tpu_torch/csrc/`` with one
 constant replaced, compiled into its own library in a temporary
 directory; the package's own build is left alone. It prints each
@@ -37,24 +37,41 @@ variant's register count and time beside the chosen one's:
   at (n, K, reortho) = (1,000,000, 90, full), (16,384, 90, none),
   (16,384, 90, full) and (16,384, 250, full), CUDA events, each result
   held to the plain version; with the registers, stack and spill bytes of
-  the three paths' instantiations.
+  the three paths' instantiations;
+- K7 (``lanczos_dia.cu``): the kernel as ``adjoint_plan`` sets it up, with
+  all of dvals in device memory, with phase c's rows in chunks of 1, 2,
+  4 and 8 (in place of 2, or of 4 where some diagonals of dvals are
+  streamed) and with 1024 threads a block, on the 2-D
+  Laplacian at n = 1,048,576, 1,000,000 and 16,384 (K = 90) and at
+  n = 2^20 on the 2-D 9-point stencil, the 3-D 27-point stencil and 65
+  diagonals, CUDA events, each result held to the plain version; with the
+  registers, stack and spill bytes of its four instantiations.
 
 ``--breakdown`` times K2 at m = 225 and K3 at m = 1 and 225 instead of
 their variants, with parts of their work cut out (K3's moments; the
 epilogue; then also the V copies, the contraction, both, or the TF32
-split), to show where their time goes; and K9 at its shapes without
-the second-pass dots of sweep B, and (streamed) without the copies.
+split), to show where their time goes; K9 at its shapes without
+the second-pass dots of sweep B, and (streamed) without the copies; and
+K7 at n = 2^20, D = 5, K = 90: the parent tree's kernel (with
+``--parent``) as it is, without its dvals read-modify-write, without the
+sums of the per-block partials after its grid barriers and without the
+values' reads, and this tree's without the dvals update and without the
+values' reads.
 
 ``--parent DIR`` (a checkout of an earlier commit, e.g. unpacked by
 ``git archive``) also builds that commit's ``gram_matvec.cu``,
 ``gram_grads.cu``, ``gram_dgrads.cu`` and ``bsr.cu`` (those of the
 kernels selected) and times them against this tree's on the same card,
 in the order parent, this, this, parent. The parent's K2 and K3 get m
-unpadded; the parent's K9 (``arnoldi_dia.cu``, its grid from
-``lat_arnoldi_dia_grid``) runs at K9's four shapes and, where DIR is a
+unpadded; the parent's K9 (``arnoldi_dia.cu``, launched with this
+tree's plan for its 112-float head) runs at K9's four shapes and, where DIR is a
 whole checkout, the paths that launch K9 (the Arnoldi VJPs of
 ``chip_smoke.ARNOLDI_SLICE`` and the per-probe SLQ value and gradient)
-run with each tree's own code in a process of its own.
+run with each tree's own code in a process of its own. The parent's K7
+(its occupancy-sized grid, its host offsets) runs at the same shapes but
+65 diagonals (more than it takes), parent, this, this, parent, by the profiler's device time and
+CUDA events; with DIR a whole checkout the fused Lanczos VJP at 1024^2
+and 1000^2 runs with each tree's own code in a process of its own.
 """
 
 import argparse
@@ -77,6 +94,7 @@ import chip_smoke as cs  # noqa: E402
 from lanczos_adjoints_tpu_torch.ops import fused_arnoldi as fa  # noqa: E402
 from lanczos_adjoints_tpu_torch.ops import fused_bsr, native  # noqa: E402
 from lanczos_adjoints_tpu_torch.ops import fused_gram as fg  # noqa: E402
+from lanczos_adjoints_tpu_torch.ops import fused_lanczos as fl  # noqa: E402
 from lanczos_adjoints_tpu_torch.utils.precision import pin_float32  # noqa: E402
 from lanczos_adjoints_tpu_torch.utils.timing import events_ms  # noqa: E402
 
@@ -476,14 +494,15 @@ def k9_runner(fn, offsets, vals, v0, depth, reortho, plan):
     n = v0.shape[0]
     q, h, res, inv = (torch.empty(shape, device="cuda") for shape in ((depth, n), (depth, depth), (n,), (1,)))
     wbuf, partials = torch.empty((2, n), device="cuda"), torch.empty(plan.partial_floats, device="cuda")
+    coefs = torch.empty(plan.coef_floats, device="cuda") if plan.coef_floats else None
     counter = torch.zeros(1, dtype=torch.int32, device="cuda")
-    offs = native.offsets_arg(offsets, n)
+    offs = native.offsets_arg(offsets, n, "cuda")
 
     def run():
         counter.zero_()
         native.check(fn(vals.data_ptr(), v0.data_ptr(), q.data_ptr(), h.data_ptr(), res.data_ptr(),
-                        inv.data_ptr(), wbuf.data_ptr(), partials.data_ptr(), counter.data_ptr(), n,
-                        len(offsets), offs, depth,
+                        inv.data_ptr(), wbuf.data_ptr(), partials.data_ptr(), counter.data_ptr(),
+                        None if coefs is None else coefs.data_ptr(), n, len(offsets), offs.data_ptr(), depth,
                         int(reortho == "full"), plan.blocks, plan.threads, plan.rows,
                         fa.PATHS.index(plan.path), plan.stage_floats, plan.smem_bytes,
                         torch.cuda.current_stream().cuda_stream), "K9")
@@ -515,9 +534,9 @@ def k9_variant(plan, path=None, threads=None, stage_floats=None):
     path, threads = path or plan.path, threads or plan.threads
     stage = 0
     if path == "streamed":
-        budget = fa.device_limits("cuda")[1] - fa.SMEM_RESERVE
-        stage = stage_floats or fa.stage_floats(plan.depth, threads, plan.rows, budget)
-    smem = fa._smem_bytes(plan.depth, threads, plan.rows, path, stage)
+        budget = native.device_limits("cuda")[1] - fa.SMEM_RESERVE
+        stage = stage_floats or fa.stage_floats(plan.depth, threads, plan.rows, budget, plan.num_diags)
+    smem = fa._smem_bytes(plan.depth, threads, plan.rows, path, stage, plan.num_diags)
     return dataclasses.replace(plan, path=path, threads=threads, stage_floats=stage, smem_bytes=smem)
 
 
@@ -534,7 +553,7 @@ def k9_variants(tmp):
             f"{name} {regs} registers, stack {stack} B, spill {st}/{ld} B"
             for name, regs, stack, st, ld in k9_ptxas(report)), flush=True)
     lib = built[fa.STAGES][0]
-    sms, smem = fa.device_limits("cuda")
+    sms, smem = native.device_limits("cuda")
     for (n, depth, reortho), (offsets, vals, v0, want) in _k9_data().items():
         base = fa.launch_plan(n, depth, reortho, sms, smem, num_diags=len(offsets))
         plans = {"the plan": (lib, base), "256 threads": (lib, k9_variant(base, threads=256))}
@@ -589,7 +608,7 @@ def k9_breakdown(tmp):
             "no compute, no copies, no coefficient sums": _K9_NO_COMPUTE + _K9_NO_COPIES + _K9_NO_SUMS}
     built = build_parallel({label: (edited_source("arnoldi_dia.cu", edits, tmp / f"k9_cut_{i}"),
                                     tmp / f"k9_cut_{i}") for i, (label, edits) in enumerate(cuts.items())})
-    sms, smem = fa.device_limits("cuda")
+    sms, smem = native.device_limits("cuda")
     for (n, depth, reortho), (offsets, vals, v0, _want) in _k9_data().items():
         plans = {"": fa.launch_plan(n, depth, reortho, sms, smem, num_diags=len(offsets))}
         if n < 100_000:
@@ -605,26 +624,38 @@ def k9_breakdown(tmp):
                       flush=True)
 
 
+def _parent_k9_plan(n, depth, reortho, num_diags):
+    """The parent's plan: this tree's ``launch_plan`` with the parent's head
+    (64 offsets, 32 warp sums, 8 mbarriers: 112 floats, whatever the
+    diagonals), the one layout difference between the two."""
+    sized_by_diags = fa.head_floats
+    fa.head_floats = lambda _num_diags: 112
+    try:
+        return fa.launch_plan(n, depth, reortho, *native.device_limits("cuda"), num_diags=num_diags)
+    finally:
+        fa.head_floats = sized_by_diags
+
+
 def k9_parent(tmp, parent):
-    """K9 at ``K9_SHAPES``: the parent's kernel (its own grid and scratch)
+    """K9 at ``K9_SHAPES``: the parent's kernel (its plan, its host offsets)
     and this tree's wrapper, parent, this, this, parent."""
     lib = build_parent(parent, "arnoldi_dia.cu", tmp / "parent_k9")
-    lib.lat_arnoldi_dia_grid.argtypes = [_I, _P]
     old = lib.lat_arnoldi_dia_forward
-    old.argtypes = [_P] * 9 + [_I, _I, _I, _P, _I, _I, _P]
+    old.argtypes = [_P] * 9 + [_I, _I, _P] + [_I] * 8 + [_P]
     for (n, depth, reortho), (offsets, vals, v0, want) in _k9_data().items():
-        blocks = ctypes.c_int(0)
-        native.check(lib.lat_arnoldi_dia_grid(n, ctypes.addressof(blocks)), "parent grid")
-        g = blocks.value
+        plan = _parent_k9_plan(n, depth, reortho, len(offsets))
         q, h, res, inv = (torch.empty(shape, device="cuda") for shape in ((depth, n), (depth, depth), (n,), (1,)))
-        wbuf, partials, coef = (torch.empty(size, device="cuda") for size in (2 * n, (2 * depth + 2) * g, depth * g))
-        offs = native.offsets_arg(offsets, n)
+        wbuf, partials = torch.empty((2, n), device="cuda"), torch.empty(plan.partial_floats, device="cuda")
+        counter = torch.zeros(1, dtype=torch.int32, device="cuda")
+        offs = (ctypes.c_int * len(offsets))(*(int(d) % n for d in offsets))
 
-        def parent_run(q=q, h=h, res=res, inv=inv, wbuf=wbuf, partials=partials, coef=coef, g=g, n=n,
-                       depth=depth, reortho=reortho, offsets=offsets, offs=offs, vals=vals, v0=v0):
+        def parent_run(q=q, h=h, res=res, inv=inv, wbuf=wbuf, partials=partials, counter=counter, n=n,
+                       depth=depth, reortho=reortho, offsets=offsets, offs=offs, vals=vals, v0=v0, plan=plan):
+            counter.zero_()
             native.check(old(vals.data_ptr(), v0.data_ptr(), q.data_ptr(), h.data_ptr(), res.data_ptr(),
-                             inv.data_ptr(), wbuf.data_ptr(), partials.data_ptr(), coef.data_ptr(), g, n,
-                             len(offsets), offs, depth, int(reortho == "full"),
+                             inv.data_ptr(), wbuf.data_ptr(), partials.data_ptr(), counter.data_ptr(), n,
+                             len(offsets), offs, depth, int(reortho == "full"), plan.blocks, plan.threads,
+                             plan.rows, fa.PATHS.index(plan.path), plan.stage_floats, plan.smem_bytes,
                              torch.cuda.current_stream().cuda_stream), "parent K9")
             return q, h, res, inv[0]
 
@@ -632,14 +663,15 @@ def k9_parent(tmp, parent):
                 "this": lambda offsets=offsets, vals=vals, v0=v0, depth=depth, reortho=reortho:
                 fa.hessenberg_dia_forward_rows(offsets, vals, v0, depth, reortho)}
         errs = {label: _k9_err(run(), want) for label, run in runs.items()}
-        plan = fa.launch_plan(n, depth, reortho, *fa.device_limits("cuda"), num_diags=len(offsets))
+        this = fa.launch_plan(n, depth, reortho, *native.device_limits("cuda"), num_diags=len(offsets))
         times = []
         for label in ("parent", "this", "this", "parent"):
             ms, clocks = cs._events_ms_clocked(runs[label], 5 if n > 100_000 else 20)
             times.append(f"{label} {ms:.4f} ms ({clocks})")
-        print(f"K9 n={n} K={depth} {reortho} (this: {plan.path}, parent: {g} blocks of 256): "
-              + ", ".join(times) + f"; rel err against the plain version: parent {errs['parent']:.2e}, "
-              f"this {errs['this']:.2e}", flush=True)
+        print(f"K9 n={n} K={depth} {reortho} (this: {this.path}, tile rows {this.tile_rows(depth - 1)} at the "
+              f"last step; parent: {plan.path}, {plan.tile_rows(depth - 1)}): " + ", ".join(times)
+              + f"; rel err against the plain version: parent {errs['parent']:.2e}, this {errs['this']:.2e}",
+              flush=True)
 
 
 # The paths that launch K9, timed by a tree's own chip_smoke.py helpers in a
@@ -683,6 +715,285 @@ def k9_paths(parent):
         runs.append((label, json.loads(line[0][len("K9PATHS "):])))
     for key in runs[0][1]:
         print(f"K9 path {key}: " + ", ".join(f"{label} {times[key]:.3f} ms" for label, times in runs)
+              + f"; clocks {cs._clocks()}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# K7: the fused Lanczos adjoint
+# ---------------------------------------------------------------------------
+
+# K7's operators beside the Laplacian: the 2-D 9-point stencil on the
+# 1024^2 grid and the 3-D 27-point one on 128 x 128 x 64 (n = 2^20 each;
+# dvals streamed), and a band of 65 diagonals.
+K7_BANDS = {
+    "9-point": tuple(a + b for a in (-1024, 0, 1024) for b in (-1, 0, 1)),
+    "27-point": tuple(a + b + c for a in (-16_384, 0, 16_384) for b in (-128, 0, 128) for c in (-1, 0, 1)),
+    "65 diagonals": cs.WIDE_65,
+}
+K7_SHAPES = ((1 << 20, "laplacian"), (1_000_000, "laplacian"), (16_384, "laplacian"),
+             *((1 << 20, kind) for kind in K7_BANDS))
+K7_DEPTH = 90
+
+
+def _k7_data(shapes=K7_SHAPES):
+    """``{(n, kind): (offsets, vals, args, plain result)}``: the adjoint's
+    inputs from the plain forward on the 2-D Laplacian (v0 seeded) or a
+    symmetric operator on one of ``K7_BANDS``, and a seeded cotangent."""
+    rng = __import__("numpy").random.default_rng(17)
+    data = {}
+    for n, kind in shapes:
+        if kind == "laplacian":
+            _mat, dia, vals = cs._laplacian(int(round(n ** 0.5)))
+        else:
+            dia, vals = cs._symmetric_dia(rng, K7_BANDS[kind], n)
+        v0 = cs._tensor(rng, n)
+        xs, alphas, betas = fl.lanczos_forward_plain(dia.offsets, vals, v0, K7_DEPTH)
+        cot = cs._cotangent(rng, K7_DEPTH, n)
+        args = (xs, alphas, betas, 1.0 / torch.linalg.vector_norm(v0),
+                torch.cat([cot[0], cot[3][None]]), cot[1], torch.cat([cot[2], cot[4][None]]))
+        data[(n, kind)] = (dia.offsets, vals, args, fl.lanczos_adjoint_plain(dia.offsets, vals, *args))
+    return data
+
+
+def _k7_err(got, want):
+    return max(cs._rel_err(a, b) for a, b in zip(got, want))
+
+
+def k7_runner(fn, offsets, vals, args, plan):
+    """A closure that launches one K7 library's ``lat_lanczos_dia_adjoint``
+    (this tree's C interface) with ``plan`` and returns (dv, dvals)."""
+    fn.argtypes = list(native._SIGNATURES["lanczos_dia"]["lat_lanczos_dia_adjoint"])
+    xs, alphas, betas, inv_norm, dxs, dalphas, dbetas = args
+    inv_norm = inv_norm.reshape(1)
+    n = xs.shape[1]
+    dv, dvals, xi, lam = (torch.empty(shape, device="cuda") for shape in ((n,), vals.shape, (n,), (2, n)))
+    partials = torch.empty(plan.partial_floats, device="cuda")
+    counter = torch.zeros(1, dtype=torch.int32, device="cuda")
+    offs = native.offsets_arg(offsets, n, "cuda")
+
+    def run():
+        counter.zero_()
+        native.check(fn(vals.data_ptr(), xs.data_ptr(), dxs.data_ptr(), alphas.data_ptr(), betas.data_ptr(),
+                        dalphas.data_ptr(), dbetas.data_ptr(), inv_norm.data_ptr(), dv.data_ptr(),
+                        dvals.data_ptr(), xi.data_ptr(), lam.data_ptr(), partials.data_ptr(),
+                        counter.data_ptr(), n, len(offsets), offs.data_ptr(), plan.depth, plan.blocks,
+                        plan.threads, plan.rows, plan.resident_diags, plan.smem_bytes,
+                        torch.cuda.current_stream().cuda_stream), "K7")
+        return dv, dvals
+
+    return run
+
+
+def k7_ptxas(report):
+    """``[(instantiation, registers, stack, spill stores, spill loads)]`` of K7's four instantiations."""
+    rows, current, frame = [], None, (0, 0, 0)
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            match = re.search(r"lanczos_adjoint_kernelILb([01])ELi(\d+)E", line)
+            current = (f"{'some' if int(match[1]) else 'no'} diagonals of dvals streamed, state in "
+                       f"{'registers' if int(match[2]) else 'device memory'}") if match else None
+            frame = (0, 0, 0)
+        elif current and "bytes stack frame" in line:
+            frame = tuple(int(v) for v in re.findall(r"(\d+) bytes", line)[:3])
+        elif current and "Used" in line and "registers" in line:
+            rows.append((current, int(re.search(r"Used (\d+) registers", line)[1]), *frame))
+            current = None
+    return rows
+
+
+def k7_variant(plan, resident_diags):
+    """``plan`` with ``resident_diags`` diagonals of dvals in shared memory,
+    its shared bytes recomputed as ``adjoint_plan`` computes them."""
+    smem = fl.adjoint_smem_bytes(plan.num_diags, plan.rows, resident_diags)
+    return dataclasses.replace(plan, resident_diags=resident_diags, smem_bytes=smem)
+
+
+_K7_CHUNK = "constexpr int kChunkOnChip = 2, kChunkStreamed = 4;"
+
+
+def k7_variants(tmp):
+    """K7 with ``adjoint_plan``'s plan and with other plans at ``K7_SHAPES``,
+    built with phase c's rows in chunks of 1, 2, 4 and 8 in both
+    instantiations and with 1024 threads of 8 rows each; registers, stack
+    and spill."""
+    builds = {"the kernel": [],
+              **{f"chunks of {c} rows": [(_K7_CHUNK, f"constexpr int kChunkOnChip = {c}, kChunkStreamed = {c};")]
+                 for c in (1, 2, 4, 8)},
+             "1024 threads, 8 rows a thread in registers": [
+                 ("constexpr int kAdjThreads = 512;", "constexpr int kAdjThreads = 1024;"),
+                 ("constexpr int kSlots = 16;", "constexpr int kSlots = 8;")]}
+    built = build_parallel({k: (edited_source("lanczos_dia.cu", edits, tmp / f"k7_{i}"), tmp / f"k7_{i}")
+                            for i, (k, edits) in enumerate(builds.items())})
+    for k, (_lib, report) in built.items():
+        print(f"K7 ({k}): " + "; ".join(f"{name} {regs} registers, stack {stack} B, spill {st}/{ld} B"
+                                        for name, regs, stack, st, ld in k7_ptxas(report)), flush=True)
+    lib = built["the kernel"][0]
+    for (n, kind), (offsets, vals, args, want) in _k7_data().items():
+        base = cs._k7_plan(offsets, n, K7_DEPTH)
+        plans = {"the plan": (lib, base)}
+        plans.update({f"the plan, {k}": (built[k][0], base) for k in list(builds)[1:-1]})
+        # 32 warps' sums (3 x 16 more floats) in the 1024-thread build's layout.
+        plans["1024 threads, 8 rows a thread in registers"] = (
+            built["1024 threads, 8 rows a thread in registers"][0],
+            dataclasses.replace(base, threads=min(1024, -(-base.rows // 32) * 32), smem_bytes=base.smem_bytes + 4 * 48))
+        plans["dvals all in device memory"] = (lib, k7_variant(base, 0))
+        for label, (variant, plan) in plans.items():
+            run = k7_runner(variant.lat_lanczos_dia_adjoint, offsets, vals, args, plan)
+            err = _k7_err(run(), want)
+            ms, clocks = cs._events_ms_clocked(run, 5 if n > 100_000 else 20)
+            print(f"K7 n={n} {kind} K={K7_DEPTH}, {label} ({plan.path} dvals, {plan.resident_diags} of "
+                  f"{plan.num_diags} diagonals on chip, state in "
+                  f"{plan.state}, {plan.blocks} x {plan.threads}): {ms:.4f} ms ({clocks}); rel err {err:.2e}",
+                  flush=True)
+
+
+# Where the parent's K7 lost its time, and this one's goes: the kernels with
+# parts of their work cut out (results are not the function's).
+_K7_PARENT_CUTS = {
+    "no dvals read-modify-write": [("        dvals[slot] += xval * lj;\n", "        (void)xval;\n")],
+    "no sums of the per-block partials": [
+        ("    const float s0 = grid_total(part0, red);\n    const float s1 = grid_total(part1, red);\n"
+         "    const float s2 = grid_total(part2, red);\n",
+         "    const float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;\n")],
+    "no values read": [("at_lam = fmaf(vals[slot], lj, at_lam);", "at_lam += lj;")],
+}
+_K7_CUTS = {
+    "no dvals update": [("            s_dvals[static_cast<size_t>(k) * rows + rr[u]] += xv[u] * ll[u];\n",
+                         "            (void)xv;\n")],
+    "no values read": [("          vv[u] = __ldg(vals + k * nn + row);", "          vv[u] = 1.0f;")],
+    "no loop over the diagonals in phase c": [
+        ("      for (int k = 0; k < num_diags; ++k) {\n        const int off = s_off[k];\n",
+         "      for (int k = 0; k < 0; ++k) {\n        const int off = s_off[k];\n")],
+    "no grid barriers (block barriers in their place)": [("grid_sync(counter, goal, threads);",
+                                                          "sync_workers(threads);")],
+}
+
+
+def _parent_k7_runner(fn, offsets, vals, args):
+    """The parent's ``lat_lanczos_dia_adjoint`` (host offsets, an occupancy-sized grid)."""
+    fn.argtypes = [_P] * 13 + [_I, _I, _I, _P, _I, _P]
+    xs, alphas, betas, inv_norm, dxs, dalphas, dbetas = args
+    inv_norm = inv_norm.reshape(1)
+    n = xs.shape[1]
+    dv, dvals, xi, lam = (torch.empty(shape, device="cuda") for shape in ((n,), vals.shape, (n,), (2, n)))
+    capacity = 3 * 8192
+    partials = torch.empty(capacity, device="cuda")
+    offs = (ctypes.c_int * len(offsets))(*(int(d) % n for d in offsets))
+
+    def run():
+        native.check(fn(vals.data_ptr(), xs.data_ptr(), dxs.data_ptr(), alphas.data_ptr(), betas.data_ptr(),
+                        dalphas.data_ptr(), dbetas.data_ptr(), inv_norm.data_ptr(), dv.data_ptr(),
+                        dvals.data_ptr(), xi.data_ptr(), lam.data_ptr(), partials.data_ptr(), capacity, n,
+                        len(offsets), offs, K7_DEPTH, torch.cuda.current_stream().cuda_stream), "parent K7")
+        return dv, dvals
+
+    return run
+
+
+def _parent_source(parent, source, edits, workdir):
+    """The parent tree's ``source`` with each ``(old, new)`` replaced, beside its headers."""
+    csrc = parent / "lanczos_adjoints_tpu_torch" / "csrc"
+    text = (csrc / source).read_text()
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError(f"parent {source}: {old!r} not found")
+        text = text.replace(old, new)
+    workdir.mkdir(parents=True, exist_ok=True)
+    for header in csrc.glob("*.cuh"):
+        (workdir / header.name).write_text(header.read_text())
+    (workdir / source).write_text(text)
+    return workdir / source
+
+
+def k7_breakdown(tmp, parent):
+    """K7 at (2^20, 5, 90) with parts of its work cut out: the parent's kernel
+    (where ``parent`` is given) and this one."""
+    jobs = {}
+    if parent is not None:
+        cuts = {"the parent's kernel": [], **{f"the parent's, {k}": e for k, e in _K7_PARENT_CUTS.items()}}
+        for i, (label, edits) in enumerate(cuts.items()):
+            jobs[label] = (_parent_source(parent, "lanczos_dia.cu", edits, tmp / f"k7p_cut_{i}"), tmp / f"k7p_cut_{i}")
+    for i, (label, edits) in enumerate({"this kernel": [], **{f"this, {k}": e for k, e in _K7_CUTS.items()}}.items()):
+        jobs[label] = (edited_source("lanczos_dia.cu", edits, tmp / f"k7_cut_{i}"), tmp / f"k7_cut_{i}")
+    built = build_parallel(jobs)
+    (offsets, vals, args, _want), = _k7_data(((1 << 20, "laplacian"),)).values()
+    plan = cs._k7_plan(offsets, 1 << 20, K7_DEPTH)
+    for label, (lib, _report) in built.items():
+        if label.startswith("the parent"):
+            run = _parent_k7_runner(lib.lat_lanczos_dia_adjoint, offsets, vals, args)
+        else:
+            run = k7_runner(lib.lat_lanczos_dia_adjoint, offsets, vals, args, plan)
+        run()
+        ms, clocks = cs._events_ms_clocked(run, 5)
+        _wall, kernels, _counts = cs._profiled(lambda run=run: [run() for _ in range(5)])
+        device = cs._per_launch_ms(kernels, "lanczos_adjoint_kernel")
+        dev = f"{device:.4f} ms on the device, " if device is not None else ""
+        print(f"K7 breakdown n={1 << 20} K={K7_DEPTH}, {label}: {dev}{ms:.4f} ms by events ({clocks})", flush=True)
+
+
+def k7_parent(tmp, parent):
+    """K7 at n = 2^20, 1,000,000, 16,384 (the Laplacian, K = 90) and at 2^20 on
+    the 9- and 27-point stencils: the parent's kernel and this tree's
+    wrapper, parent, this, this, parent, by the profiler's device time and
+    CUDA events."""
+    lib = build_parent(parent, "lanczos_dia.cu", tmp / "parent_k7")
+    shapes = tuple(shape for shape in K7_SHAPES if shape[1] != "65 diagonals")
+    for (n, kind), (offsets, vals, args, want) in _k7_data(shapes).items():
+        runs = {"parent": _parent_k7_runner(lib.lat_lanczos_dia_adjoint, offsets, vals, args),
+                "this": lambda offsets=offsets, vals=vals, args=args: fl.lanczos_adjoint_rows(offsets, vals, *args)}
+        errs = {label: _k7_err(run(), want) for label, run in runs.items()}
+        reps = 5 if n > 100_000 else 20
+        times = []
+        for label in ("parent", "this", "this", "parent"):
+            ms, clocks = cs._events_ms_clocked(runs[label], reps)
+            _wall, kernels, _counts = cs._profiled(lambda run=runs[label]: [run() for _ in range(reps)])
+            device = cs._per_launch_ms(kernels, "lanczos_adjoint_kernel")
+            dev = f"{device:.4f}" if device is not None else "not measured"
+            times.append(f"{label} {dev} ms on the device, {ms:.4f} ms by events ({clocks})")
+        print(f"K7 n={n} {kind} K={K7_DEPTH} (this: {cs._k7_plan(offsets, n, K7_DEPTH).path}): " + "; ".join(times)
+              + f"; rel err against the plain version: parent {errs['parent']:.2e}, this {errs['this']:.2e}",
+              flush=True)
+
+
+# The fused Lanczos VJP of bench.py's flow, timed by a tree's own code in a
+# process of its own: the m x m Laplacian -> sparse_operator -> tridiag
+# (K = 90, the dispatch to K6/K7), one VJP with the all-ones cotangent,
+# CUDA events over 5 after a warm-up.
+_K7_PATHS = """
+import json
+import torch
+import chip_smoke as cs
+from lanczos_adjoints_tpu_torch.krylov import lanczos
+from lanczos_adjoints_tpu_torch.ops import sparse
+from lanczos_adjoints_tpu_torch.utils import test_util
+from lanczos_adjoints_tpu_torch.utils.precision import pin_float32
+from lanczos_adjoints_tpu_torch.utils.timing import events_ms
+
+pin_float32()
+out = {}
+for m in (1024, 1000):
+    matvec, vals = sparse.sparse_operator(test_util.laplacian_2d(m), device="cuda")
+    v0 = torch.ones(m * m, device="cuda")
+    estimate = lanczos.tridiag(matvec, cs.DEPTH, reortho="none")
+    cs._one_vjp(estimate, v0, vals)
+    out[f"fused Lanczos VJP m={m}"] = events_ms(lambda: cs._one_vjp(estimate, v0, vals), 5)
+print("K7PATHS " + json.dumps(out), flush=True)
+"""
+
+
+def k7_paths(parent):
+    """The fused Lanczos VJP at 1024^2 and 1000^2, each tree's own code in a
+    process of its own: parent, this, this, parent."""
+    here = Path(__file__).resolve().parent.parent
+    runs = []
+    for label, tree in (("parent", parent), ("this", here), ("this", here), ("parent", parent)):
+        proc = subprocess.run([sys.executable, "-c", _K7_PATHS], cwd=tree, capture_output=True, text=True)
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("K7PATHS ")]
+        if proc.returncode != 0 or not line:
+            raise RuntimeError(f"{label} paths failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        runs.append((label, json.loads(line[0][len("K7PATHS "):])))
+    for key in runs[0][1]:
+        print(f"K7 path {key}: " + ", ".join(f"{label} {times[key]:.3f} ms" for label, times in runs)
               + f"; clocks {cs._clocks()}", flush=True)
 
 
@@ -760,15 +1071,15 @@ def parent_comparison(tmp, parent, n=400_000):
 
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", default="k1,k2,k3,k9,k10",
-                        help="comma-separated kernels: k1, k2, k3, k9, k10")
+    parser.add_argument("--only", default="k1,k2,k3,k7,k9,k10",
+                        help="comma-separated kernels: k1, k2, k3, k7, k9, k10")
     parser.add_argument("--parent", type=Path, help="a tree of an earlier commit to time against")
     parser.add_argument("--breakdown", action="store_true",
-                        help="K2, K3 and K9: time the kernel with parts of its work removed")
+                        help="K2, K3, K7 and K9: time the kernel with parts of its work removed")
     args = parser.parse_args(argv)
     only = set(args.only.split(","))
-    if not only <= {"k1", "k2", "k3", "k9", "k10"}:
-        parser.error(f"--only takes k1, k2, k3, k9, k10, got {args.only!r}")
+    if not only <= {"k1", "k2", "k3", "k7", "k9", "k10"}:
+        parser.error(f"--only takes k1, k2, k3, k7, k9, k10, got {args.only!r}")
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device", file=sys.stderr)
         return 2
@@ -783,6 +1094,10 @@ def main(argv) -> int:
                 k2_parent(tmp, args.parent)
             if "k3" in only:
                 k3_parent(tmp, args.parent)
+            if "k7" in only and not args.breakdown:
+                k7_parent(tmp, args.parent)
+                if (args.parent / "chip_smoke.py").exists():
+                    k7_paths(args.parent)
             if "k9" in only:
                 k9_parent(tmp, args.parent)
                 if (args.parent / "chip_smoke.py").exists():
@@ -793,6 +1108,8 @@ def main(argv) -> int:
             for kernel in ("k2", "k3"):
                 if kernel in only:
                     breakdown(tmp, kernel)
+            if "k7" in only:
+                k7_breakdown(tmp, args.parent)
             if "k9" in only:
                 k9_breakdown(tmp)
         else:
@@ -800,6 +1117,8 @@ def main(argv) -> int:
                 k2_variants(tmp)
             if "k3" in only:
                 k3_variants(tmp)
+            if "k7" in only:
+                k7_variants(tmp)
             if "k9" in only:
                 k9_variants(tmp)
         if "k1" in only:

@@ -306,7 +306,7 @@ def test_launch_plan_keeps_the_basis_resident_at_small_n(n, depth, reortho):
         assert (plan.blocks, plan.rows) == (128, 128)
 
 
-@pytest.mark.parametrize(("n", "depth", "tile_rows_last"), [(1_000_000, 90, 304), (100_489, 90, 304),
+@pytest.mark.parametrize(("n", "depth", "tile_rows_last"), [(1_000_000, 90, 308), (100_489, 90, 308),
                                                             (262_144, 250, 108)])
 def test_launch_plan_streams_the_basis_where_it_does_not_fit(n, depth, tile_rows_last):
     """Streamed: the largest staging buffers that fit. A B or C tile at step
@@ -346,23 +346,25 @@ def test_launch_plan_gives_at_most_one_block_an_sm(n, depth, sms):
 
 def test_launch_plan_refuses_what_the_kernel_cannot_run():
     """No silent re-planning: a depth outside [1, n], an unknown option and
-    a card whose shared memory cannot hold a block's coefficients raise."""
+    a card whose shared memory cannot hold a block's layout even with the
+    coefficients in device memory (6,368 bytes at 512 threads) raise."""
     with pytest.raises(ValueError, match="no K9 plan"):
         _plan(16_384, 16_385)
     with pytest.raises(ValueError, match="no K9 plan"):
         _plan(16_384, 0)
     with pytest.raises(ValueError, match="shared memory"):
-        _plan(16_384, 90, smem=8_192)
+        _plan(16_384, 90, smem=4_096)
     with pytest.raises(TypeError, match="Unexpected input"):
         _plan(16_384, 90, "junk")
 
 
-@pytest.mark.parametrize(("n", "depth", "path"), [(9_216, 841, "streamed"), (9_216, 842, "direct"),
+@pytest.mark.parametrize(("n", "depth", "path"), [(9_216, 842, "streamed"), (9_216, 843, "direct"),
                                                   (9_216, 1_000, "direct"), (1_000_000, 8_000, "direct"),
                                                   (16_384, 16_384, "direct")])
 def test_launch_plan_runs_any_depth(n, depth, path):
     """Past the depth whose deepest A tile would hold fewer than 32 rows
-    (842 at five diagonals on an H100) the plan takes the direct path: no
+    (843 at five diagonals on an H100, the head sized by the diagonals)
+    the plan takes the direct path: no
     producer, no staging buffers, the basis read from device memory a row a
     thread. No depth is refused. (9,216, 1,000) is [parity-arnoldi]'s deep
     case."""
@@ -374,3 +376,20 @@ def test_launch_plan_runs_any_depth(n, depth, path):
         assert plan.stage_floats == 0 and plan.block_threads == plan.threads
         assert all(plan.tile_rows(i, s) == min(plan.rows, plan.threads) for i in (0, depth - 1) for s in "AB")
     assert plan.smem_bytes <= H100_SMEM - fused_arnoldi.SMEM_RESERVE
+
+
+@pytest.mark.parametrize(("n", "depth", "smem"), [(1_000_000, 30_000, H100_SMEM), (16_384, 16_384, 65_536),
+                                                  (9_216, 1_000, 12_000)])
+def test_launch_plan_keeps_the_coefficients_in_device_memory_where_they_do_not_fit(n, depth, smem):
+    """The direct path's 2 x depth coefficients (240 KB at depth 30,000)
+    go to device memory, a slice of 2 x padded depth floats a block, where
+    they do not fit beside the rest of its layout: any depth <= n runs, as
+    the JAX package's ``hessenberg`` does. (9,216, 1,000) with 12,000 bytes
+    is [parity-arnoldi]'s case of this plan on the card."""
+    plan = _plan(n, depth, smem=smem)
+    padded = (depth + 4) // 4 * 4
+    assert plan.path == "direct" and plan.coef_floats == 2 * padded * plan.blocks
+    head = fused_arnoldi.head_floats(5) + plan.threads
+    assert plan.smem_bytes == 4 * (head + 2 * plan.threads) <= smem - fused_arnoldi.SMEM_RESERVE
+    assert 4 * (head + 2 * padded + 2 * plan.threads) > smem - fused_arnoldi.SMEM_RESERVE
+    assert _plan(n, min(depth, 800)).coef_floats == 0  # shallower: in shared memory

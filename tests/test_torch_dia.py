@@ -130,15 +130,6 @@ def test_rejects_n_not_a_multiple_of_1024_like_the_jax_kernel():
     assert str(got.value) == str(want.value)
 
 
-def test_rejects_more_diagonals_than_the_kernels_take():
-    offsets = tuple(range(-40, 40))
-    dia = sparse.DIAData(offsets, (1024, 1024), 0, np.zeros(0), np.zeros(0))
-    with pytest.raises(ValueError, match="at most 64"):
-        fused_dia.dia_matvec_fused(dia)
-    with pytest.raises(ValueError, match="1 to 64"):
-        native.offsets_arg(offsets, 1024)
-
-
 def test_wrappers_check_dtype_shape_and_device():
     offsets = (-1, 0, 1)
     x, vals = torch.randn(1024), torch.randn(3, 1024)
@@ -155,8 +146,13 @@ def test_wrappers_check_dtype_shape_and_device():
 
 
 def test_offsets_reach_the_kernels_reduced_modulo_n():
-    got = list(native.offsets_arg((-1024, -1, 0, 1, 1024, 2049), 1024))
-    assert got == [0, 1023, 0, 1, 0, 1]
+    got = native.offsets_arg((-1024, -1, 0, 1, 1024, 2049), 1024)
+    assert got.dtype == torch.int32 and got.tolist() == [0, 1023, 0, 1, 0, 1]
+    # One tensor per operator and device, built once; signed where n is None.
+    assert native.offsets_arg((-1024, -1, 0, 1, 1024, 2049), 1024, "cpu") is got
+    assert native.offsets_arg((-3, 0, 3), None).tolist() == [-3, 0, 3]
+    with pytest.raises(ValueError, match="at least one diagonal"):
+        native.offsets_arg((), 1024)
 
 
 def test_one_registry_holds_every_kernel_and_counts_only_launches():
@@ -176,7 +172,9 @@ def test_one_registry_holds_every_kernel_and_counts_only_launches():
     assert native.KERNELS["lanczos_dia_forward"] is fused_lanczos.LANCZOS_FORWARD
     assert native.KERNELS["arnoldi_dia_forward"] is fused_arnoldi.ARNOLDI_FORWARD
     assert native.KERNELS["halo_dia_matvec"] is fused_halo.HALO_DIA
-    assert set(native.SOURCES) == {k.source for k in native.KERNELS.values()}
+    # Every source holds a registered kernel, but the card's limits query.
+    assert set(native.SOURCES) == {k.source for k in native.KERNELS.values()} | {"device"}
+    assert "lat_device_limits" in native._SIGNATURES["device"]
     with pytest.raises(ValueError, match="twice"):
         native.Kernel("dia_matvec", "dia", "lat_dia_matvec")
     native.KERNELS["dia_dvals"].launches = 3

@@ -445,3 +445,65 @@ def test_fused_guards_an_exactly_exhausted_krylov_space_like_jax():
     for got, want in zip(grads_t, grads_j):
         assert np.all(np.isfinite(got.numpy()))
         np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+
+
+# K7's launch plan on an H100 SXM: 132 SMs, 227 KB (232,448 bytes) of
+# opt-in shared memory a block.
+H100_SMS, H100_SMEM = 132, 232_448
+
+
+def _adjoint_plan(n, offsets, sms=H100_SMS, smem=H100_SMEM, depth=90):
+    return fused_lanczos.adjoint_plan(n, depth, sms, smem, num_diags=len(offsets))
+
+
+# Shared bytes: the offsets (rounded up to 4), 48 floats of block sums, and
+# the block's resident_diags x rows slice of dvals.
+@pytest.mark.parametrize(("n", "offsets", "resident_diags", "smem_bytes"), [
+    # bench.py's 1024^2 Laplacian: 132 blocks of 7,944 rows; dvals (5 x 7,944
+    # floats, 158.9 KB) resident.
+    (1 << 20, (-1024, -1, 0, 1, 1024), 5, 4 * (8 + 48 + 5 * 7_944)),
+    # The 128^2 Laplacian: 128 blocks of 128 rows, 128 threads each.
+    (16_384, (-128, -1, 0, 1, 128), 5, 4 * (8 + 48 + 5 * 128)),
+    # Offsets across half the circle: resident all the same.
+    (1 << 20, (-(1 << 19) + 4, 0, 1 << 19), 3, 4 * (4 + 48 + 3 * 7_944)),
+    # At n = 2^20 seven diagonals of dvals fit (217.4 KB): all of a
+    # 7-diagonal operator's; 7 of the 8, 9 (the 9-point stencil), 27 and 65
+    # of wider ones, the others streamed.
+    (1 << 20, tuple(range(-3, 4)), 7, 4 * (8 + 48 + 7 * 7_944)),
+    (1 << 20, tuple(range(-4, 4)), 7, 4 * (8 + 48 + 7 * 7_944)),
+    (1 << 20, (-1025, -1024, -1023, -1, 0, 1, 1023, 1024, 1025), 7, 4 * (12 + 48 + 7 * 7_944)),
+    (1 << 20, tuple(a + b for a in (-1024, 0, 1024) for b in (-1, 0, 1)) + tuple(range(2, 20)),
+     7, 4 * (28 + 48 + 7 * 7_944)),
+    (1 << 20, tuple(range(-32, 33)), 7, 4 * (68 + 48 + 7 * 7_944)),
+])
+def test_adjoint_plan_keeps_dvals_on_chip_where_it_fits(n, offsets, resident_diags, smem_bytes):
+    plan = _adjoint_plan(n, offsets)
+    assert (plan.resident_diags, plan.smem_bytes) == (resident_diags, smem_bytes)
+    assert plan.path == ("resident" if resident_diags == len(offsets) else "streamed")
+    assert plan.blocks <= H100_SMS and plan.rows % 4 == 0
+    assert plan.blocks * plan.rows >= n > (plan.blocks - 1) * plan.rows
+    assert plan.smem_bytes <= H100_SMEM - fused_lanczos.SMEM_RESERVE
+    assert plan.partial_floats == 3 * -(-plan.blocks // 4) * 4
+    if n == 1 << 20:
+        assert (plan.blocks, plan.rows, plan.threads, plan.state) == (132, 7_944, 512, "registers")
+    else:
+        assert (plan.blocks, plan.rows, plan.threads, plan.state) == (128, 128, 128, "registers")
+
+
+def test_adjoint_plan_takes_any_n_and_depth():
+    """Past 16 rows a thread the block's state moves to device memory; a
+    card with little shared memory streams dvals; no n or depth is refused
+    but those outside [1, n]."""
+    big = _adjoint_plan(3_000_000, (-1, 0, 1), depth=3)
+    assert big.rows == 22_728 and big.state == "device" and big.path == "streamed"
+    assert big.resident_diags == 2
+    mid = _adjoint_plan(1_200_000, (-1, 0, 1))
+    assert mid.rows == 9_092 and mid.state == "device" and mid.path == "resident"
+    small = _adjoint_plan(100, (-1, 0, 1), sms=66)
+    assert (small.blocks, small.rows, small.threads, small.path) == (25, 4, 32, "resident")
+    assert _adjoint_plan(1 << 20, (-1024, 0, 1024), smem=48 * 1024).resident_diags == 1
+    assert _adjoint_plan(1 << 20, (-1024, 0, 1024), smem=24 * 1024).resident_diags == 0
+    with pytest.raises(ValueError, match="no K7 plan"):
+        _adjoint_plan(100, (0,), depth=101)
+    with pytest.raises(ValueError, match="shared memory"):
+        _adjoint_plan(1 << 20, tuple(range(2_000)), smem=8_192)
