@@ -893,11 +893,30 @@ def _lanczos_cases():
                                     ("tridiagonal", (-1, 0, 1), 3_000_000, 12)):
         dia, vals = _symmetric_dia(rng, offsets, n)
         yield f"{name} n={n} K={depth}", dia, vals, _tensor(rng, n), depth
+    # K6's grid path with at most 4 rows a thread (n from 16,385 to about
+    # 270,000): the 256 x 256 Laplacian, with its window of x, and 65
+    # diagonals 1,001 apart, whose window does not fit beside the values.
+    _mat, dia, vals = _laplacian(256)
+    yield f"laplacian n={256 * 256} K={DEPTH}", dia, vals, _tensor(rng, 256 * 256), DEPTH
+    dia, vals = _symmetric_dia(rng, tuple(1_001 * k for k in range(-32, 33)), 1 << 16)
+    yield f"65 diagonals 1,001 apart n={1 << 16} K=30", dia, vals, _tensor(rng, 1 << 16), 30
 
 
 # K7's plans that [parity-lanczos] must reach: (dvals path, state).
 K7_PLANS = {("resident", "registers"), ("streamed", "registers"),
             ("resident", "device"), ("streamed", "device")}
+# K6's plans that [parity-lanczos] must reach, one for each instantiation
+# the planner can pick: (path, rows a thread keeps in registers (0: the
+# state in device memory), a window of x, values). The grid path with 16
+# slots and a window (1024^2, offsets +-(2^19 - 3)) or without, some of
+# the values in device memory (65 and 100 diagonals at 2^20); with the
+# state in device memory and a window (1.2M) or without (3M); with 4 slots
+# and a window (256^2) or without (65 diagonals 1,001 apart at 65,536);
+# the cluster path (16,384, 4,736, 4,739, exhausted).
+K6_PLANS = {("grid", 16, True, "resident"), ("grid", 16, False, "streamed"),
+            ("grid", 0, True, "resident"), ("grid", 0, False, "streamed"),
+            ("grid", 4, True, "resident"), ("grid", 4, False, "resident"),
+            ("cluster", 4, True, "resident")}
 
 
 def _k7_plan(offsets, n, depth):
@@ -907,16 +926,34 @@ def _k7_plan(offsets, n, depth):
     return fl.adjoint_plan(n, depth, *native.device_limits(DEVICE), num_diags=len(offsets))
 
 
+def _k6_plan(offsets, n, depth):
+    from lanczos_adjoints_tpu_torch.ops import fused_lanczos as fl
+    from lanczos_adjoints_tpu_torch.ops import native
+
+    return fl.forward_plan(n, depth, *native.device_limits(DEVICE), offsets=offsets)
+
+
+def _k6_plan_line(plan):
+    return (f"{plan.path} path, {plan.values} values ({plan.resident_diags} of {plan.num_diags} diagonals "
+            f"on chip), x {f'from a window of {plan.window} rows' if plan.window else 'from device memory'}, "
+            f"state in {f'registers ({plan.slots} slots)' if plan.slots else 'device memory'}, "
+            f"{plan.blocks} blocks of {plan.threads} threads, {plan.rows} rows a block")
+
+
 def phase_parity_lanczos():
     """K6 and K7 against their plain versions, tolerances from the f32-vs-f64
-    spread, on every plan of K7; K7 twice on the same inputs, bit for bit."""
+    spread, on every plan of K6 and K7; each twice on the same inputs, bit
+    for bit."""
     from lanczos_adjoints_tpu_torch.ops import fused_lanczos as fl
 
     print("[parity-lanczos] fused Lanczos kernels vs plain versions on the card", flush=True)
-    failures, plans = [], set()
+    failures, plans, k6_plans = [], set(), set()
     rng = np.random.default_rng(5)
     for name, dia, vals, v0, depth in _lanczos_cases():
         offsets, n = dia.offsets, dia.shape[0]
+        k6 = _k6_plan(offsets, n, depth)
+        k6_plans.add((k6.path, k6.slots, bool(k6.window), k6.values))
+        print(f"  K6 {name}: {_k6_plan_line(k6)}", flush=True)
         plan = _k7_plan(offsets, n, depth)
         plans.add((plan.path, plan.state))
         print(f"  K7 {name}: {plan.path} dvals ({plan.resident_diags} of {plan.num_diags} diagonals "
@@ -971,10 +1008,33 @@ def phase_parity_lanczos():
         del kernel, plain, exact, got, want, cot, args, outputs, grads, direct
     if plans < K7_PLANS:
         failures.append(f"K7 plans not reached: {sorted(K7_PLANS - plans)}")
+    if k6_plans < K6_PLANS:
+        failures.append(f"K6 plans not reached: {sorted(K6_PLANS - k6_plans)}")
+    _k6_bitwise(failures)
     _k7_bitwise(failures)
     if failures:
         msg = f"{len(failures)} Lanczos parity checks failed: {failures[:5]}"
         raise RuntimeError(msg)
+
+
+def _k6_bitwise(failures):
+    """K6 twice on the same inputs at the 1024 x 1024 Laplacian (the grid
+    path) and at the 128 x 128 one (the cluster path), K = 90."""
+    from lanczos_adjoints_tpu_torch.ops import fused_lanczos as fl
+
+    rng = np.random.default_rng(16)
+    for m in (GRIDS[-1], GRIDS[0]):
+        _mat, dia, vals = _laplacian(m)
+        n = dia.shape[0]
+        v0 = _tensor(rng, n)
+        first = fl.lanczos_forward_rows(dia.offsets, vals, v0, DEPTH)
+        second = fl.lanczos_forward_rows(dia.offsets, vals, v0, DEPTH)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        print(f"  K6 n={n} K={DEPTH} ({_k6_plan(dia.offsets, n, DEPTH).path} path): two runs bit for bit {same}",
+              flush=True)
+        if not same:
+            failures.append(f"K6 bitwise n={n}")
 
 
 def _k7_bitwise(failures):
@@ -1210,6 +1270,24 @@ def _record(rows, failures, key, symbol, runs, plains, nbytes, ops, reps, plain_
           + (" ok" if ok else " FAIL"), flush=True)
 
 
+def _k6_traffic(n, num_diags, depth, plan):
+    """K6's bytes: each array once (what the function must move; the
+    bound), the parent kernel's schedule and this one's. The parent's three
+    sweeps a step moved (D + 8) vectors of 4n bytes (the values re-read, a
+    work vector written, read and re-written, x read twice more and x_prev
+    once, the basis row written; the D shifted reads of x counted once).
+    This schedule's grid path moves 3 a step (r written, its D shifted
+    reads counted once, the basis row written), its cluster path 1 (the
+    basis row: r stays in shared memory), each one more for every diagonal
+    of the values not in shared memory; and once the resident values, v0
+    and basis row 0. Printed beside the bound, never part of the kernels
+    line."""
+    per_step = (3 if plan.path == "grid" else 1) + num_diags - plan.resident_diags
+    return {"bytes_once": 4 * (num_diags + 1 + depth + 1) * n,
+            "bytes_parent_schedule": 4 * depth * (num_diags + 8) * n,
+            "bytes_schedule": 4 * (depth * per_step + plan.resident_diags + 2) * n}
+
+
 def _k7_traffic(n, num_diags, depth, plan):
     """K7's bytes: each array once (what the function must move; the
     bound), the parent kernel's schedule and this one's. The parent's three
@@ -1290,6 +1368,15 @@ def phase_timing_sparse(slices):
                reps, 2,
                exact=lambda: fl.lanczos_adjoint_plain(offsets, vals.double(),
                                                       *(a.double() for a in args)))
+        k6 = _k6_plan(offsets, n, DEPTH)
+        traffic = _k6_traffic(n, num_diags, DEPTH, k6)
+        gb, ms = ({key: v / 1e9 for key, v in traffic.items()},
+                  {key: 1e3 * v / PEAK_BYTES for key, v in traffic.items()})
+        print(f"    K6 n={n} ({_k6_plan_line(k6)}): each array once {gb['bytes_once']:.4f} GB "
+              f"({ms['bytes_once']:.4f} ms at 3.35 TB/s); the parent's schedule "
+              f"{gb['bytes_parent_schedule']:.4f} GB ({ms['bytes_parent_schedule']:.4f} ms); this schedule "
+              f"{gb['bytes_schedule']:.4f} GB ({ms['bytes_schedule']:.4f} ms); K6 at "
+              f"{100 * ms['bytes_schedule'] / rows[('K6', n)]['ms']:.1f} % of this schedule's floor", flush=True)
         plan = _k7_plan(offsets, n, DEPTH)
         traffic = _k7_traffic(n, num_diags, DEPTH, plan)
         gb, ms = ({key: v / 1e9 for key, v in traffic.items()},

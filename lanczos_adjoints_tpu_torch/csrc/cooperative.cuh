@@ -1,8 +1,8 @@
-// Shared pieces of the cooperative, persistent kernels (csrc/lanczos_dia.cu,
-// csrc/arnoldi_dia.cu, csrc/halo_dia.cu): fixed-order warp, block and grid
-// sums, the guarded divide of a Krylov exhaustion, the size of a
-// co-resident grid, and the grid barrier of the kernels planned on the
-// host (K7, K9), one block an SM.
+// Shared pieces of the persistent kernels (csrc/lanczos_dia.cu,
+// csrc/arnoldi_dia.cu, csrc/halo_dia.cu): fixed-order warp sums, the
+// guarded divide of a Krylov exhaustion, the grid barrier of the kernels
+// planned on the host (K6, K7, K9), one block an SM, and the barrier of a
+// thread block cluster (K6's cluster path).
 //
 // Every sum here is taken in one fixed order that does not depend on the
 // block that computes it, so a scalar that all blocks reduce from the
@@ -13,8 +13,7 @@
 
 namespace lat {
 
-constexpr int kCoopThreads = 256;
-constexpr int kCoopWarps = kCoopThreads / 32;
+constexpr int kCoopThreads = 256;  // K11's threads a block
 
 // Sum of v over the warp, the same bits in every lane (each butterfly
 // stage adds two equal-bit group sums, and a + b == b + a exactly).
@@ -23,48 +22,9 @@ __device__ inline float warp_sum(float v) {
   return v;
 }
 
-// Sum of v over the block, returned to every thread, in a fixed order.
-__device__ inline float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  __syncthreads();  // the previous use of red is finished
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float s = 0.0f;
-#pragma unroll
-  for (int w = 0; w < kCoopWarps; ++w) s += red[w];
-  return s;
-}
-
-// Sum of the per-block partials, the same in every block. Data written
-// during the launch is read through L2 (__ldcg), never through L1.
-__device__ inline float grid_total(const float* partials, float* red) {
-  float s = 0.0f;
-  for (int b = threadIdx.x; b < gridDim.x; b += blockDim.x) s += __ldcg(partials + b);
-  return block_sum(s, red);
-}
-
 __device__ inline float guarded_div(float v, float norm) {
   // Krylov exhaustion: a zero norm truncates to zeros instead of 0 / 0.
   return norm > 0.0f ? v / norm : 0.0f;
-}
-
-// Blocks for a cooperative launch of `kernel` with kCoopThreads threads
-// and `smem` bytes of dynamic shared memory: all co-resident, at most one
-// per kCoopThreads rows. Returns a CUDA error code.
-template <typename Kernel>
-cudaError_t cooperative_blocks(Kernel kernel, int n, size_t smem, int* blocks) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kCoopThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int need = (n + kCoopThreads - 1) / kCoopThreads;
-  *blocks = per_sm * sms < need ? per_sm * sms : need;
-  return cudaSuccess;
 }
 
 // The barrier of a block's `threads` computing threads (named barrier 1):
@@ -101,6 +61,16 @@ __device__ inline void grid_sync(unsigned* counter, unsigned& goal, int threads)
     } while (static_cast<int>(goal - seen) > 0);
   }
   sync_workers(threads);
+}
+
+// The barrier of a thread block cluster: every thread of every block of
+// the cluster arrives (release) and waits (acquire), so what a block
+// wrote to its shared memory before it is visible after it to the other
+// blocks' reads through distributed shared memory.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // The stride of a slab of per-block partials: the blocks rounded up to a

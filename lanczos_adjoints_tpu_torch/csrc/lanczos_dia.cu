@@ -16,19 +16,68 @@
 // K7 reads xs, dxs and vals and writes dv and dvals,
 // (2 (K + 1) + 2 D + 1) n 4 bytes. At n = 1,048,576, D = 5, K = 90 that is
 // 407 MB (121 us) and 809 MB (242 us) at 3.35 TB/s. At n = 16,384 the
-// bytes take a few microseconds and the K-step chain of grid-wide
-// barriers (3K + 1 in K6, 2K + 1 in K7) sets the time instead.
+// bytes take a few microseconds and the K-step chain of barriers (2K + 1
+// in each) sets the time instead.
 //
-// K6. One cooperative, persistent launch: the grid is sized by the
-// occupancy calculator to be co-resident on the card (at most one block
-// per 256 rows), and each block walks its rows with a grid stride that
-// stays the same in every phase, so a thread only ever reads back the
-// scratch entries (ax / resid) that it wrote itself. A step has three
-// grid barriers (cg::this_grid().sync()): after the matvec and the
-// per-block partials of x.Ax (then alpha), after the residual and the
-// partials of |resid|^2 (then beta), and after writing the guarded
-// x_next = resid / beta to basis row i + 1 (the next matvec reads its
-// neighbours' rows).
+// K6, planned on the host (ops/fused_lanczos.py `forward_plan`) and only
+// validated here, like K7 and K9. A step computes w = A x and
+// alpha = x.w, then r = w - alpha x - beta x_prev and beta' = |r|, then
+// x' = r / beta' (guarded). The parent kernel ran it over an
+// occupancy-sized grid (up to 8 blocks an SM, ~1,056 blocks) with a grid
+// stride and three grid barriers a step (cg::this_grid().sync()), every
+// block re-summing all ~1,056 partials after each, and moved (D + 8)
+// vectors of 4n bytes a step through device memory (the values re-read, a
+// work vector written, read and re-written, x read twice more, x_prev
+// once; the D shifted reads of x counted once): 13 at D = 5, 4.9 GB over
+// 90 steps at n = 2^20 (1.46 ms at 3.35 TB/s). This design:
+// - the grid path: at most one block an SM (up to 512 threads), block b
+//   owning rows [b R, (b + 1) R), R a multiple of 4;
+// - the block's rows of the values are staged once into shared memory for
+//   all K steps (the TPU kernel's VMEM-resident values): all D diagonals
+//   where they fit (5 x 7,944 floats, 158.9 KB at n = 2^20), else the
+//   first `resident_diags`, the others read through the read-only path
+//   each step;
+// - a thread owns rows r = tid + s T (s < 16, or s < 4 where a thread owns
+//   4 rows or fewer) and keeps their x_prev, x and w in registers; a block
+//   of more than 16 T rows reads x and x_prev back from its own rows of
+//   the basis and keeps w in device scratch, on the same launch;
+// - two grid barriers a step, not three: after the partials of x.w
+//   (alpha), and after r and the partials of |r|^2 (beta'). r goes to one
+//   (n,) scratch; after the second barrier each block writes only its own
+//   rows of basis row i + 1, as r / beta' from registers (evict-first),
+//   and keeps them as the next x. A neighbour's row j of the next x is
+//   guarded(r[j] / beta') (step 0: v0[j] / |v0|), the same rounded
+//   quotient bit for bit, so no barrier waits for the basis row. One
+//   scratch suffices: every read of step i's r ends before the first
+//   barrier of step i + 1, and step i + 1 writes r after it;
+// - where it fits in the shared memory the values leave (n = 2^20 and
+//   1,000,000 at five diagonals; not at 7 diagonals or more there), the
+//   matvec reads x from a window: the block's own rows, written from
+//   registers, and the halo its offsets reach, loaded from r once a step
+//   in batches and divided once (without it the kernel reads 1.64 ms at
+//   (2^20, 5, 90) on an H100 against 1.14, scripts/torch_kernel_variants.py
+//   --only k6); else x comes from r in device memory, each load of a batch
+//   issued before any divide;
+// - per step device memory sees r written, its halo (or D shifted reads)
+//   read back and the basis row written: 3 vectors, and one more for each
+//   diagonal of the values not in shared memory;
+// - K9's grid barrier (csrc/cooperative.cuh `grid_sync`, an atomic
+//   counter the wrapper zeroes); after it one warp a block sums the
+//   blocks' partials (132, not ~1,056) in one fixed order and shares the
+//   total through shared memory (with every warp reading them, 2,112
+//   warps queue on the same lines and a barrier costs several times
+//   more): the same bits in every block and every run.
+// The cluster path, for n up to the plan's CLUSTER_MAX_N (the 128 x 128
+// Laplacian): there a grid barrier a step sets the time, against a bound
+// of 1.9 us for the whole launch. One thread block cluster (16 blocks,
+// the non-portable size) runs the recurrence: each block keeps its rows
+// of the values, of r and its window of x in shared memory, fills the
+// window's halo from its neighbours' r through distributed shared memory
+// once a step, and each warp pushes its partial sum into every block's
+// shared memory (so no block barrier and no remote read waits on the
+// sum); the two barriers a step are the cluster's
+// (barrier.cluster.arrive.release / barrier.cluster.wait.acquire). Only
+// the basis rows and the coefficients go to device memory.
 //
 // K7, planned on the host (ops/fused_lanczos.py `adjoint_plan`) and only
 // validated here, like K9. A step of the adjoint reads x_i, dx_i and the
@@ -90,88 +139,360 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = lat::kCoopThreads;
-constexpr int kWarps = lat::kCoopWarps;
-using lat::block_sum;
-using lat::cooperative_blocks;
 using lat::grid_sync;
-using lat::grid_total;
 using lat::guarded_div;
 using lat::slab_stride;
 using lat::sync_workers;
 using lat::warp_sum;
 
-__global__ void __launch_bounds__(kThreads)
-    lanczos_forward_kernel(const float* __restrict__ vals, const float* __restrict__ v0,
-                           float* xs, float* alphas, float* betas, float* work,
-                           float* partials, int n, int num_diags,
-                           const int* __restrict__ offsets, int depth) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ int s_off[];
-  __shared__ float red[kWarps];
-  lat::stage_offsets(offsets, num_diags, s_off);
-  // A slot is rewritten only after a barrier that follows every block's
-  // read of it: part_a after barrier 3, part_b after barrier 1.
-  float* part_a = partials;              // x . Ax
-  float* part_b = partials + gridDim.x;  // |resid|^2 (and |v0|^2 first)
-  const int first = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
+// The rows of a thread (K6 and K7): r = tid + s threads < len, with
+// s < kRegs (the loop unrolled, the state in registers) or s = 0 for every
+// row (the state in device memory).
+#define LAT_FOR_ROWS(s, r)                                                    \
+  _Pragma("unroll") for (int s = 0, r = tid; kRegs > 0 ? s < kRegs : r < len; \
+                         s += (kRegs > 0), r += threads) if (r < len)
 
-  float s = 0.0f;
-  for (int i = first; i < n; i += stride) s = fmaf(v0[i], v0[i], s);
-  s = block_sum(s, red);
-  if (threadIdx.x == 0) part_b[blockIdx.x] = s;
-  grid.sync();
-  const float norm0 = sqrtf(grid_total(part_b, red));
-  for (int i = first; i < n; i += stride) xs[i] = guarded_div(v0[i], norm0);
+// K6's constants: threads a block at most, rows a thread keeps in
+// registers (kFwdFewSlots where a thread owns few rows, so that a small
+// block does not walk 16 slots that hold nothing), and the largest
+// cluster (the non-portable size).
+constexpr int kFwdThreads = 512;
+constexpr int kFwdWarps = kFwdThreads / 32;
+constexpr int kFwdSlots = 16;
+constexpr int kFwdFewSlots = 4;
+constexpr int kMaxCluster = 16;
+// Loads a thread issues before it divides or multiplies any of them:
+// rows (state in registers) or diagonals of a row (state in device
+// memory) of the matvec, and rows of the window's halo.
+constexpr int kFwdBatch = 8;
+// Floats of the block sums: one a warp, the two totals (grid path), and
+// the warp sums the cluster's blocks push to each other (two slots of
+// kMaxCluster x kFwdWarps).
+constexpr int kFwdSums = kFwdWarps + 4 + 2 * kMaxCluster * kFwdWarps;
 
-  float beta = 0.0f;
-  for (int step = 0; step < depth; ++step) {
-    const float* x = xs + static_cast<size_t>(step) * n;
-    const float* x_prev = x - n;  // read only from step 1 on
-    float* x_next = xs + static_cast<size_t>(step + 1) * n;
+// Floats of K6's dynamic shared memory: the staged offsets and the window
+// table (3 num_diags + 4 ints), each rounded up to 4, the block sums, the
+// block's resident_diags x rows slice of the values, on the cluster path
+// the block's rows of r, and the window of x. ops/fused_lanczos.py
+// `forward_smem_bytes` computes the same.
+__host__ __device__ inline size_t forward_smem_floats(int num_diags, int rows, int resident_diags,
+                                                      bool cluster, int window) {
+  return static_cast<size_t>((num_diags + 3) / 4 * 4) + (3 * num_diags + 4 + 3) / 4 * 4 + kFwdSums +
+         static_cast<size_t>(resident_diags + (cluster ? 1 : 0)) * rows + window;
+}
 
-    // 1. ax = A x, and the partials of x . ax. Row 0 of the basis is
-    // not yet visible across blocks in step 0, so that step recomputes
-    // the neighbours' x0 = v0 / |v0| (the same rounded quotient).
-    float p = 0.0f;
-    for (int i = first; i < n; i += stride) {
-      float acc = 0.0f;
-      for (int k = 0; k < num_diags; ++k) {
-        const int j = lat::wrap(i, s_off[k], n);
-        const float xj = step == 0 ? guarded_div(v0[j], norm0) : __ldcg(x + j);
-        acc = fmaf(vals[static_cast<size_t>(k) * n + i], xj, acc);
+// The sum of v over every thread of the grid (or the cluster), the same
+// bits in every thread. On the grid path the block's sum (its warps' sums
+// added by warp 0 in one fixed order) is published as its partial in
+// `slot`; after a grid barrier warp 0 sums all blocks' partials in one
+// fixed order and shares the total through shared memory (one warp a
+// block reads the partials, so their lines see 132 readers, not 2,112).
+// On the cluster path each warp pushes its sum into every block's shared
+// memory before a cluster barrier, after which every warp sums all warps'
+// sums, in one fixed order, from its own: no block barrier waits on the
+// way. A slot is rewritten only after the next barrier, which every
+// reader of it reaches after its read.
+template <bool kCluster>
+__device__ inline float all_blocks_total(float v, int slot, float* sums, float* partials,
+                                         unsigned* counter, unsigned& goal, int threads) {
+  float* red = sums;                 // kFwdWarps
+  float* totals = sums + kFwdWarps;  // 2 (grid)
+  float* pushed = totals + 4;        // 2 x kMaxCluster x kFwdWarps (cluster)
+  const int blocks = gridDim.x, lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warps = threads / 32;
+  v = warp_sum(v);
+  if constexpr (kCluster) {
+    float* mine = pushed + slot * kMaxCluster * kFwdWarps;
+    if (lane < blocks)
+      *cg::this_cluster().map_shared_rank(mine + blockIdx.x * kFwdWarps + warp, lane) = v;
+    lat::cluster_sync();
+    float t = 0.0f;
+    for (int i = lane; i < blocks * kFwdWarps; i += 32) {
+      if (i % kFwdWarps < warps) t += mine[i];
+    }
+    return warp_sum(t);
+  } else {
+    if (lane == 0) red[warp] = v;
+    sync_workers(threads);
+    float* slab = partials + slot * slab_stride(blocks);
+    if (warp == 0) {
+      const float s = warp_sum(lane < warps ? red[lane] : 0.0f);
+      if (lane == 0) slab[blockIdx.x] = s;
+    }
+    grid_sync(counter, goal, threads);
+    if (warp == 0) {
+      float t = 0.0f;
+      for (int b = lane; b < blocks; b += 32) t += __ldcg(slab + b);
+      t = warp_sum(t);
+      if (lane == 0) totals[slot] = t;
+    }
+    sync_workers(threads);
+    return totals[slot];
+  }
+}
+
+// Row j of the vector whose quotient is this step's x: v0 at step 0, else
+// the previous step's r, from the scratch in device memory (grid) or from
+// the shared memory of the block that owns it (cluster).
+template <bool kCluster>
+__device__ __forceinline__ float source_row(const float* src, float* s_r, int j, int rows,
+                                            bool first) {
+  if constexpr (kCluster) {
+    if (!first) {
+      const int rank = j / rows;
+      const int local = j - rank * rows;
+      if (rank == static_cast<int>(blockIdx.x)) return s_r[local];
+      return *cg::this_cluster().map_shared_rank(s_r + local, rank);
+    }
+  }
+  return __ldcg(src + j);
+}
+
+// The window of x: the rows the block's matvec reads, the block's own
+// rows among them, as contiguous segments of rows relative to the block's
+// first row. The table (ops/fused_lanczos.py `window_table`): the window
+// index of the block's first row, the number of segments, each segment's
+// (window index, row relative to the block's first row), then for each
+// diagonal k the window index of row (first row + d_k). Fill the rows the
+// block does not own with guarded(src[g] / scale); the owners of the own
+// rows write them from registers.
+template <bool kCluster>
+__device__ inline void stage_halo(float* s_win, const int* s_tab, int window, int len, int r0,
+                                  int n, int rows, const float* src, float* s_r, float scale,
+                                  bool first, int threads) {
+  const int own = s_tab[0], segs = s_tab[1];
+  const int* seg = s_tab + 2;
+  const int halo = window - len;
+  for (int j0 = threadIdx.x; j0 < halo; j0 += kFwdBatch * threads) {
+    float v[kFwdBatch];
+    int at[kFwdBatch];
+#pragma unroll
+    for (int u = 0; u < kFwdBatch; ++u) {
+      const int j = j0 + u * threads;
+      at[u] = -1;
+      v[u] = 0.0f;
+      if (j < halo) {
+        const int idx = j < own ? j : j + len;
+        int i = 0;
+        while (i + 1 < segs && seg[2 * (i + 1)] <= idx) ++i;
+        int g = (r0 + seg[2 * i + 1] + (idx - seg[2 * i])) % n;
+        if (g < 0) g += n;
+        at[u] = idx;
+        v[u] = source_row<kCluster>(src, s_r, g, rows, first);
       }
-      work[i] = acc;
-      p = fmaf(x[i], acc, p);
     }
-    p = block_sum(p, red);
-    if (threadIdx.x == 0) part_a[blockIdx.x] = p;
-    grid.sync();
-    const float alpha = grid_total(part_a, red);
+#pragma unroll
+    for (int u = 0; u < kFwdBatch; ++u) {
+      if (at[u] >= 0) s_win[at[u]] = guarded_div(v[u], scale);
+    }
+  }
+}
 
-    // 2. resid = ax - alpha x - beta x_prev, and the partials of |resid|^2.
+// K6 itself. kCluster: the grid is one thread block cluster and r lives in
+// shared memory; else the grid is co-resident, one block an SM at most,
+// and r lives in `scratch`. kRegs: as in LAT_FOR_ROWS. kWindow: the
+// matvec reads x from the block's window in shared memory (filled once a
+// step, each row divided once), else every neighbour's row from r,
+// divided where read. The C entry launches the cluster path only as
+// <true, kFwdFewSlots, true>, the plan's only cluster.
+template <bool kCluster, int kRegs, bool kWindow>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    lanczos_forward_kernel(const float* __restrict__ vals, const float* __restrict__ v0,
+                           float* xs, float* alphas, float* betas, float* scratch,
+                           float* partials, unsigned* counter, int n, int num_diags,
+                           const int* __restrict__ offsets, const int* __restrict__ table,
+                           int depth, int rows, int resident_diags, int window) {
+  constexpr int kS = kRegs > 0 ? kRegs : 1;
+  constexpr int kRowBatch = kS < kFwdBatch ? kS : kFwdBatch;
+  static_assert(kS % kRowBatch == 0, "a thread's slots split into whole batches");
+  extern __shared__ __align__(16) float smem_fwd[];
+  int* s_off = reinterpret_cast<int*>(smem_fwd);  // in [0, n)
+  int* s_tab = s_off + (num_diags + 3) / 4 * 4;
+  float* sums = reinterpret_cast<float*>(s_tab + (3 * num_diags + 4 + 3) / 4 * 4);
+  float* s_vals = sums + kFwdSums;
+  float* s_r = s_vals + static_cast<size_t>(resident_diags) * rows;  // cluster path
+  float* s_win = s_r + (kCluster ? rows : 0);
+  const int threads = blockDim.x, tid = threadIdx.x;
+  const size_t nn = n;
+  const int r0 = blockIdx.x * rows, len = max(0, min(n, r0 + rows) - r0);
+  float* r_g = scratch;       // grid path: r of the step before, all rows
+  float* w_g = scratch + nn;  // the state in device memory: this step's w
+  unsigned goal = 0;
+  auto total = [&](float v, int slot) {
+    return all_blocks_total<kCluster>(v, slot, sums, partials, counter, goal, threads);
+  };
+
+  if constexpr (kWindow) {
+    for (int i = tid; i < 3 * num_diags + 4; i += threads) s_tab[i] = __ldg(table + i);
+  }
+  lat::stage_offsets(offsets, num_diags, s_off);  // and a barrier of the whole block
+  const int* s_base = s_tab + 2 + 2 * (kWindow ? s_tab[1] : 0);  // window index of row d_k
+  for (int k = 0; k < resident_diags; ++k) {
+    for (int r = tid; r < len; r += threads) {
+      s_vals[static_cast<size_t>(k) * rows + r] = __ldg(vals + k * nn + r0 + r);
+    }
+  }
+
+  // x0 = v0 / |v0| into basis row 0 (the staged values are visible to the
+  // whole block after the barrier in `total`).
+  float x[kS], xp[kS], w[kS];
+  float p = 0.0f;
+  LAT_FOR_ROWS(s, r) {
+    const float v = __ldg(v0 + r0 + r);
+    p = fmaf(v, v, p);
+  }
+  const float norm0 = sqrtf(total(p, 1));
+  LAT_FOR_ROWS(s, r) {
+    const float v = guarded_div(__ldg(v0 + r0 + r), norm0);
+    if constexpr (kRegs > 0) {
+      x[s] = v;
+      xp[s] = 0.0f;
+    }
+    if constexpr (kWindow) s_win[s_tab[0] + r] = v;
+    __stcs(xs + r0 + r, v);
+  }
+  if constexpr (kWindow) {
+    stage_halo<kCluster>(s_win, s_tab, window, len, r0, n, rows, v0, s_r, norm0, true, threads);
+    sync_workers(threads);
+  }
+
+  const float* src = v0;
+  float scale = norm0, beta = 0.0f;
+  for (int step = 0; step < depth; ++step) {
+    const float* x_row = xs + static_cast<size_t>(step) * nn;
+    const bool first = step == 0;
+
+    // A. w = A x, and the partials of x . w. Row j of x is
+    // guarded(src[j] / scale), the quotient its owner stored in the basis:
+    // read from the window, or loaded and divided here. The loads of a
+    // batch of rows (or diagonals) are issued before any divide: a
+    // divide's slow-path branch would otherwise hold each load back until
+    // the one before it returned.
+    p = 0.0f;
+    if constexpr (kRegs > 0) {
+#pragma unroll
+      for (int s = 0; s < kS; ++s) w[s] = 0.0f;
+      for (int k = 0; k < num_diags; ++k) {
+        const int off = s_off[k];
+        const bool on_chip = k < resident_diags;  // the same in every thread
+        const float* sk = s_vals + static_cast<size_t>(k) * rows;
+        const float* vk = vals + k * nn + r0;
+        const float* wk = s_win + (kWindow ? s_base[k] : 0);
+#pragma unroll
+        for (int s0 = 0; s0 < kS; s0 += kRowBatch) {
+          float v[kRowBatch], xj[kRowBatch];
+#pragma unroll
+          for (int u = 0; u < kRowBatch; ++u) {
+            const int r = tid + (s0 + u) * threads;
+            const bool ok = r < len;
+            v[u] = ok ? (on_chip ? sk[r] : __ldg(vk + r)) : 0.0f;
+            if constexpr (kWindow) {
+              xj[u] = ok ? wk[r] : 0.0f;
+            } else {
+              xj[u] = ok && off != 0
+                          ? source_row<kCluster>(src, s_r, lat::wrap(r0 + r, off, n), rows, first)
+                          : 0.0f;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kRowBatch; ++u) {
+            const int s = s0 + u;
+            if (tid + s * threads < len) {
+              const float xv = kWindow || off == 0 ? (kWindow ? xj[u] : x[s]) : guarded_div(xj[u], scale);
+              w[s] = fmaf(v[u], xv, w[s]);
+            }
+          }
+        }
+      }
+      LAT_FOR_ROWS(s, r) p = fmaf(x[s], w[s], p);
+    } else {
+      for (int r = tid; r < len; r += threads) {
+        const int row = r0 + r;
+        const float xv = __ldcg(x_row + row);  // this thread's own store
+        float a = 0.0f;
+        for (int k0 = 0; k0 < num_diags; k0 += kFwdBatch) {
+          float v[kFwdBatch], xj[kFwdBatch];
+#pragma unroll
+          for (int u = 0; u < kFwdBatch; ++u) {
+            const int k = k0 + u;
+            const int off = k < num_diags ? s_off[k] : 0;
+            v[u] = k >= num_diags        ? 0.0f
+                   : k < resident_diags ? s_vals[static_cast<size_t>(k) * rows + r]
+                                        : __ldg(vals + k * nn + row);
+            if constexpr (kWindow) {
+              xj[u] = k < num_diags ? s_win[s_base[k] + r] : 0.0f;
+            } else {
+              xj[u] = off == 0 ? xv : __ldcg(src + lat::wrap(row, off, n));
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kFwdBatch; ++u) {
+            if (k0 + u < num_diags) {
+              const bool direct = kWindow || s_off[k0 + u] == 0;
+              a = fmaf(v[u], direct ? xj[u] : guarded_div(xj[u], scale), a);
+            }
+          }
+        }
+        __stcg(w_g + row, a);
+        p = fmaf(xv, a, p);
+      }
+    }
+    const float alpha = total(p, 0);  // barrier 1
+
+    // B. r = w - alpha x - beta x_prev into the scratch (or shared memory),
+    // and the partials of |r|^2.
     float q = 0.0f;
-    for (int i = first; i < n; i += stride) {
-      float r = work[i] - alpha * x[i];
-      if (step > 0) r -= beta * x_prev[i];
-      work[i] = r;
-      q = fmaf(r, r, q);
+    LAT_FOR_ROWS(s, r) {
+      const int row = r0 + r;
+      float rv;
+      if constexpr (kRegs > 0) {
+        rv = w[s] - alpha * x[s] - beta * xp[s];
+        w[s] = rv;
+      } else {
+        rv = __ldcg(w_g + row) - alpha * __ldcg(x_row + row);
+        if (!first) rv -= beta * __ldcg(x_row - nn + row);
+      }
+      if constexpr (kCluster) {
+        s_r[r] = rv;
+      } else {
+        __stcg(r_g + row, rv);
+      }
+      q = fmaf(rv, rv, q);
     }
-    q = block_sum(q, red);
-    if (threadIdx.x == 0) part_b[blockIdx.x] = q;
-    grid.sync();
-    const float beta_next = sqrtf(grid_total(part_b, red));
+    const float beta_next = sqrtf(total(q, 1));  // barrier 2
 
-    // 3. The guarded x_next into basis row step + 1.
-    for (int i = first; i < n; i += stride) x_next[i] = guarded_div(work[i], beta_next);
-    if (blockIdx.x == 0 && threadIdx.x == 0) {
+    // C. The block's own rows of basis row step + 1, kept as the next x
+    // (and written to the window, whose halo is then filled for the next
+    // step).
+    float* x_next = xs + static_cast<size_t>(step + 1) * nn;
+    LAT_FOR_ROWS(s, r) {
+      const int row = r0 + r;
+      float xn;
+      if constexpr (kRegs > 0) {
+        xp[s] = x[s];
+        x[s] = xn = guarded_div(w[s], beta_next);
+      } else {
+        xn = guarded_div(__ldcg(r_g + row), beta_next);
+      }
+      if constexpr (kWindow) s_win[s_tab[0] + r] = xn;
+      __stcs(x_next + row, xn);
+    }
+    if (blockIdx.x == 0 && tid == 0) {
       alphas[step] = alpha;
       betas[step] = beta_next;
     }
-    beta = beta_next;
-    grid.sync();
+    src = r_g;
+    scale = beta = beta_next;
+    if constexpr (kWindow) {
+      if (step + 1 < depth) {
+        stage_halo<kCluster>(s_win, s_tab, window, len, r0, n, rows, r_g, s_r, beta_next, false,
+                             threads);
+        sync_workers(threads);
+      }
+    }
   }
+  // No block leaves while another may still read its shared memory.
+  if constexpr (kCluster) lat::cluster_sync();
 }
 
 // K7's constants: threads a block at most and rows a thread keeps in
@@ -219,14 +540,6 @@ __device__ inline void block_total3(float& a, float& b, float& c, float* red, in
 // K7 itself. kStreams: some diagonals of dvals stay in device memory
 // (resident_diags < num_diags); without it every diagonal is on chip and
 // the kernel carries no code for the others.
-//
-// The rows of a thread: r = tid + s threads < len, with s < kRegs (the loop
-// unrolled, the state in registers) or s = 0 for every row (the state in
-// device memory).
-#define LAT_FOR_ROWS(s, r)                                                    \
-  _Pragma("unroll") for (int s = 0, r = tid; kRegs > 0 ? s < kRegs : r < len; \
-                         s += (kRegs > 0), r += threads) if (r < len)
-
 template <bool kStreams, int kRegs>
 __global__ void __launch_bounds__(kAdjThreads, 1)
     lanczos_adjoint_kernel(const float* __restrict__ vals, const float* __restrict__ xs,
@@ -432,30 +745,130 @@ __global__ void __launch_bounds__(kAdjThreads, 1)
 
 #undef LAT_FOR_ROWS
 
+// The checks of a K6 launch of `blocks` x `threads` with `smem` bytes,
+// made on every launch: the kernel may use `smem` bytes of dynamic shared
+// memory; the cluster path needs a card that places the cluster
+// (cudaOccupancyMaxActiveClusters >= 1), the grid path a card of
+// cooperative launches that holds the grid co-resident, one block an SM
+// at most.
+template <typename Kernel>
+cudaError_t check_forward_launch(Kernel kernel, bool cluster, int blocks, int threads,
+                                 size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  if (cluster) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(blocks);
+    config.blockDim = dim3(threads);
+    config.dynamicSmemBytes = smem;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+    if (err != cudaSuccess) return err;
+    return clusters < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+  }
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  if (blocks > sms) return cudaErrorInvalidValue;
+  return per_sm < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
 }  // namespace
 
 // vals: (num_diags, n); v0: (n,); xs: (depth + 1, n); alphas, betas:
-// (depth,); work: (n,) scratch; partials: scratch of partials_capacity
-// floats (two per block). offsets: device int32 array, each in [0, n). float32,
-// contiguous. Returns the launch's CUDA error code (cudaErrorInvalidValue
-// for a shape the kernel does not take, without launching).
+// (depth,); scratch: (n,) floats on the grid path (r), (2, n) where the
+// state is in device memory (r, w), unused on the cluster path; partials:
+// 2 slab_stride(blocks) floats of scratch on the grid path; counter: one
+// unsigned, zero (the grid barrier's). offsets: device int32 array, each
+// in [0, n); table: the window's (3 num_diags + 4 ints, see stage_halo),
+// read where window > 0. float32, contiguous. The plan (the path, blocks,
+// threads a block, rows a block, the diagonals of the values kept in
+// shared memory, the window's floats, shared bytes) comes from
+// ops/fused_lanczos.py `forward_plan`; it is validated, never changed: a
+// depth outside [1, n], a grid that does not cover n with rows a block
+// (or, on the grid path, has an empty block), threads that are not a
+// multiple of 32 up to kFwdThreads, resident diagonals outside
+// [0, num_diags], a window shorter than a block's rows or without a
+// table, shared bytes other than the layout's, on the grid path more
+// blocks than SMs or a grid that is not co-resident, on the cluster path
+// more than kMaxCluster blocks, values not all resident, no window or
+// more than kFwdFewSlots rows a thread (the planner takes the cluster only
+// then), or a cluster the card cannot place
+// (cudaOccupancyMaxActiveClusters < 1) return an error without a launch;
+// no other path is tried.
 extern "C" int lat_lanczos_dia_forward(const float* vals, const float* v0, float* xs,
-                                       float* alphas, float* betas, float* work,
-                                       float* partials, int partials_capacity, int n,
-                                       int num_diags, const int* offsets, int depth,
+                                       float* alphas, float* betas, float* scratch,
+                                       float* partials, unsigned* counter, int n, int num_diags,
+                                       const int* offsets, const int* table, int depth,
+                                       int cluster, int blocks, int threads, int rows,
+                                       int resident_diags, int window, int smem_bytes,
                                        void* stream) {
-  if (!lat::valid_shape(n, num_diags) || depth < 1) return cudaErrorInvalidValue;
-  const size_t smem = lat::offsets_bytes(num_diags);
-  int blocks = 0;
-  cudaError_t err = lat::allow_smem(lanczos_forward_kernel, smem);
-  if (err == cudaSuccess) err = cooperative_blocks(lanczos_forward_kernel, n, smem, &blocks);
+  if (!lat::valid_shape(n, num_diags) || depth < 1 || depth > n) return cudaErrorInvalidValue;
+  if (resident_diags < 0 || resident_diags > num_diags) return cudaErrorInvalidValue;
+  if (threads < 32 || threads % 32 != 0 || threads > kFwdThreads) return cudaErrorInvalidValue;
+  if (rows < 4 || rows % 4 != 0 || blocks < 1 || static_cast<long long>(blocks) * rows < n)
+    return cudaErrorInvalidValue;
+  if (window < 0 || (window > 0 && (window < rows || table == nullptr))) return cudaErrorInvalidValue;
+  const int per_thread = (rows + threads - 1) / threads;
+  const bool regs = per_thread <= kFwdSlots, few = per_thread <= kFwdFewSlots;
+  const bool win = window > 0;
+  if (cluster ? blocks > kMaxCluster || resident_diags != num_diags || !win || !few
+              : static_cast<long long>(blocks - 1) * rows >= n)
+    return cudaErrorInvalidValue;
+  const size_t need =
+      sizeof(float) * forward_smem_floats(num_diags, rows, resident_diags, cluster, window);
+  if (smem_bytes < 0 || need != static_cast<size_t>(smem_bytes)) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(smem_bytes);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (cluster) {
+    auto kernel = &lanczos_forward_kernel<true, kFwdFewSlots, true>;
+    err = check_forward_launch(kernel, true, blocks, threads, smem);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(blocks);
+    config.blockDim = dim3(threads);
+    config.dynamicSmemBytes = smem;
+    config.stream = s;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(&config, kernel, vals, v0, xs, alphas, betas, scratch, partials,
+                             counter, n, num_diags, offsets, table, depth, rows, resident_diags,
+                             window);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  }
+  auto kernel = few    ? (win ? &lanczos_forward_kernel<false, kFwdFewSlots, true>
+                               : &lanczos_forward_kernel<false, kFwdFewSlots, false>)
+                : regs ? (win ? &lanczos_forward_kernel<false, kFwdSlots, true>
+                              : &lanczos_forward_kernel<false, kFwdSlots, false>)
+                       : (win ? &lanczos_forward_kernel<false, 0, true>
+                              : &lanczos_forward_kernel<false, 0, false>);
+  err = check_forward_launch(kernel, false, blocks, threads, smem);
   if (err != cudaSuccess) return err;
-  if (2 * blocks > partials_capacity) return cudaErrorInvalidValue;
-  void* args[] = {&vals, &v0, &xs, &alphas, &betas, &work, &partials,
-                  &n, &num_diags, &offsets, &depth};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(lanczos_forward_kernel),
-                                    dim3(blocks), dim3(kThreads), args, smem,
-                                    static_cast<cudaStream_t>(stream));
+  void* args[] = {&vals, &v0, &xs, &alphas, &betas, &scratch, &partials, &counter, &n,
+                  &num_diags, &offsets, &table, &depth, &rows, &resident_diags, &window};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(blocks), dim3(threads),
+                                    args, smem, s);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 

@@ -9,13 +9,23 @@ Counterpart of ``lanczos_adjoints_tpu/ops/pallas_lanczos.py``:
   adjoint in one launch: per step the (xi, mu, nu, lambda) update,
   ``A lambda`` and ``dvals[k] += x * roll(lambda, -d_k)``; then ``dv``.
 
-K7's launch is planned here, by ``adjoint_plan`` from the card's SM count
-and shared memory, and only validated by the kernel: at most one block an
-SM, each owning contiguous rows, with the block's slice of ``dvals`` in
-shared memory for all K steps: all of it (``resident``) or, where it does
-not fit, as many of its diagonals as do, the others read-modify-written
-in device memory (``streamed``). The block's rows of the adjoint's state stay in registers
-where a thread owns at most ``SLOTS`` rows.
+Both launches are planned here, by ``forward_plan`` and ``adjoint_plan``
+from the card's SM count and shared memory, and only validated by the
+kernels. K6 takes one of two paths. On the ``grid`` path at most one
+block an SM owns contiguous rows, with its rows of the values in shared
+memory for all K steps (all D diagonals, or as many as fit), and two grid
+barriers a step; where it fits beside the values, a block's matvec reads
+x from a window in shared memory (``window_table``), else from device
+memory. On the ``cluster`` path, for n up to ``CLUSTER_MAX_N``, one
+thread block cluster of ``CLUSTER_BLOCKS`` blocks runs the whole
+recurrence in shared memory, the window of x included, with the
+cluster's barriers. K7 likewise puts
+at most one block on an SM, each owning contiguous rows, with the block's
+slice of ``dvals`` in shared memory for all K steps: all of it
+(``resident``) or, where it does not fit, as many of its diagonals as do,
+the others read-modify-written in device memory (``streamed``). Both keep
+the block's rows of their state in registers where a thread owns at most
+``SLOTS`` rows.
 
 Divides are guarded as in the JAX package: a zero norm (an exhausted
 Krylov space) truncates to zero vectors instead of 0 / 0. A wrapper
@@ -27,6 +37,7 @@ the forward as K6 and the backward as K7.
 """
 
 import dataclasses
+import functools
 
 import torch
 
@@ -37,14 +48,68 @@ LANCZOS_FORWARD = native.Kernel("lanczos_dia_forward", "lanczos_dia", "lat_lancz
 LANCZOS_ADJOINT = native.Kernel("lanczos_dia_adjoint", "lanczos_dia", "lat_lanczos_dia_adjoint",
                                 device_symbol="lanczos_adjoint_kernel")
 LANES = 128  # the JAX kernel's lane width, kept for its n % 128 rule
-# Floats of per-block partials K6's wrapper allocates: two slots of up to
-# 8,192 blocks, well above the co-resident blocks of one card.
-_PARTIALS = 2 * 8192
 
 ADJOINT_THREADS = 512  # kAdjThreads in csrc/lanczos_dia.cu: K7's threads a block at most
-SLOTS = 16  # kSlots: rows a K7 thread keeps in registers
+SLOTS = 16  # kSlots and kFwdSlots: rows a K6 or K7 thread keeps in registers
 WARP_SUMS = 3 * ADJOINT_THREADS // 32  # floats of K7's block sums
 SMEM_RESERVE = 1024  # bytes of a block's shared memory the plan leaves free
+
+FORWARD_THREADS = 512  # kFwdThreads: K6's threads a block at most
+# kFwdSums: floats of K6's block sums, one a warp, two totals (padded to
+# 4), and two slots of warp sums from each of up to 16 (kMaxCluster)
+# blocks of a cluster.
+FORWARD_SUMS = FORWARD_THREADS // 32 * (1 + 2 * 16) + 4
+FEW_SLOTS = 4  # kFwdFewSlots: K6's instantiations for a thread of at most 4 rows
+# K6's cluster path: one cluster of this many blocks (kMaxCluster, the
+# non-portable size), taken for n up to CLUSTER_MAX_N where the values, r
+# and the window of x fit the cluster's shared memory and a thread owns
+# at most FEW_SLOTS rows. On an H100 (scripts/torch_kernel_variants.py
+# --only k6, the 2-D Laplacian at K = 90) 16 blocks read 0.416 ms at
+# n = 16,384 against 0.425 on 8 and 0.453 on the grid path; at 65,536 the
+# grid path leads (0.516 against 0.814 ms), so the cluster stops at 16,384.
+CLUSTER_BLOCKS = 16
+CLUSTER_MAX_N = 16_384
+
+
+@dataclasses.dataclass(frozen=True)
+class ForwardPlan:
+    """K6's launch: ``blocks`` of ``threads`` threads, block b owning rows
+    ``[b rows, (b + 1) rows)``, the first ``resident_diags`` diagonals of the
+    block's rows of the values in shared memory for all steps and the others
+    read from device memory each step. ``path`` is ``"grid"`` (one block an
+    SM at most, r in device memory, grid barriers) or ``"cluster"`` (the
+    blocks are one thread block cluster, r in their shared memory, cluster
+    barriers). ``window`` is the floats of the block's window of x in shared
+    memory, 0 where the matvec reads x from device memory instead.
+    ``values`` is ``"resident"`` where all diagonals stay in shared memory,
+    else ``"streamed"``; ``slots`` is the rows a thread keeps in registers
+    (``FEW_SLOTS`` or ``SLOTS``, the kernel's instantiation), 0 where it
+    owns more than ``SLOTS`` and ``state`` is ``"device"``, not
+    ``"registers"``."""
+
+    path: str
+    resident_diags: int
+    window: int
+    blocks: int
+    threads: int
+    rows: int
+    smem_bytes: int
+    partial_floats: int
+    depth: int
+    num_diags: int
+
+    @property
+    def values(self) -> str:
+        return "resident" if self.resident_diags == self.num_diags else "streamed"
+
+    @property
+    def slots(self) -> int:
+        per_thread = -(-self.rows // self.threads)
+        return FEW_SLOTS if per_thread <= FEW_SLOTS else SLOTS if per_thread <= SLOTS else 0
+
+    @property
+    def state(self) -> str:
+        return "registers" if self.slots else "device"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,8 +135,13 @@ class AdjointPlan:
         return "resident" if self.resident_diags == self.num_diags else "streamed"
 
     @property
+    def slots(self) -> int:
+        per_thread = -(-self.rows // self.threads)
+        return FEW_SLOTS if per_thread <= FEW_SLOTS else SLOTS if per_thread <= SLOTS else 0
+
+    @property
     def state(self) -> str:
-        return "registers" if -(-self.rows // self.threads) <= SLOTS else "device"
+        return "registers" if self.slots else "device"
 
 
 def _round4(count):
@@ -109,6 +179,94 @@ def adjoint_plan(n, depth, sms, smem_per_block, *, num_diags):
     smem = adjoint_smem_bytes(num_diags, rows, resident)
     return AdjointPlan(resident_diags=resident, blocks=blocks, threads=threads, rows=rows, smem_bytes=smem,
                        partial_floats=3 * _round4(blocks), depth=depth, num_diags=num_diags)
+
+
+def forward_smem_bytes(num_diags, rows, resident_diags, path, window=0):
+    """The kernel's ``forward_smem_floats`` in bytes: the offsets and the
+    window table (3 D + 4 ints), the block sums, the ``resident_diags x rows``
+    slice of the values, on the cluster path the block's rows of r, and the
+    window of x."""
+    return 4 * (_round4(num_diags) + _round4(3 * num_diags + 4) + FORWARD_SUMS
+                + (resident_diags + (path == "cluster")) * rows + window)
+
+
+def _signed(offset, n):
+    offset %= n
+    return offset - n if offset > n // 2 else offset
+
+
+def window_table(offsets, n, rows):
+    """K6's window of x for a block of ``rows`` rows: ``(floats, table)``.
+
+    The window holds the rows a block's matvec reads, as the merged spans
+    ``[d, d + rows)`` of its offsets (taken into (-n/2, n/2]) and its own
+    rows ``[0, rows)``, relative to the block's first row. The table (the
+    kernel's ``stage_halo``): the window index of the block's first row,
+    the number of spans, each span's (window index, first row relative to
+    the block's), then each diagonal's window index of row ``d_k``; padded
+    to 3 D + 4 ints.
+    """
+    spans = []
+    for lo, hi in sorted({(_signed(d, n), _signed(d, n) + rows) for d in offsets} | {(0, rows)}):
+        if spans and lo <= spans[-1][1]:
+            spans[-1][1] = max(spans[-1][1], hi)
+        else:
+            spans.append([lo, hi])
+    starts = [0]
+    for lo, hi in spans:
+        starts.append(starts[-1] + hi - lo)
+
+    def index(rel):
+        return next(start + rel - lo for (lo, hi), start in zip(spans, starts) if lo <= rel < hi)
+
+    table = [index(0), len(spans), *(v for (lo, _hi), start in zip(spans, starts) for v in (start, lo)),
+             *(index(_signed(d, n)) for d in offsets)]
+    return starts[-1], table + [0] * (3 * len(offsets) + 4 - len(table))
+
+
+def forward_plan(n, depth, sms, smem_per_block, *, offsets):
+    """K6's launch for the DIA operator of ``offsets`` on a card of ``sms``
+    SMs and ``smem_per_block`` bytes of opt-in shared memory a block.
+
+    For n up to ``CLUSTER_MAX_N`` the cluster path, where each of
+    ``CLUSTER_BLOCKS`` blocks holds its rows of the values, of r and its
+    window of x (``window_table``) and a thread owns at most ``FEW_SLOTS``
+    rows; else the grid path: one block an SM at most, each owning ``rows``
+    contiguous rows (n / sms rounded up to a multiple of 4), of
+    ``FORWARD_THREADS`` threads (fewer, a multiple of 32, where the rows
+    are fewer), with as many of the block's diagonals of the values in
+    shared memory as fit, up to all of them, and the block's window of x
+    in the shared memory they leave where it fits (else the matvec reads x
+    from device memory). Any n and depth run.
+    """
+    num_diags = len(offsets)
+    if not 0 < depth <= n or num_diags < 1:
+        msg = f"no K6 plan for n={n}, depth={depth}, {num_diags} diagonals"
+        raise ValueError(msg)
+    budget = smem_per_block - SMEM_RESERVE
+    if n <= CLUSTER_MAX_N:
+        rows = _round4(-(-n // CLUSTER_BLOCKS))
+        threads = min(FORWARD_THREADS, -(-rows // 32) * 32)
+        window = window_table(offsets, n, rows)[0]
+        smem = forward_smem_bytes(num_diags, rows, num_diags, "cluster", window)
+        if smem <= budget and -(-rows // threads) <= FEW_SLOTS:
+            return ForwardPlan(path="cluster", resident_diags=num_diags, window=window, blocks=CLUSTER_BLOCKS,
+                               threads=threads, rows=rows, smem_bytes=smem, partial_floats=0, depth=depth,
+                               num_diags=num_diags)
+    rows = _round4(-(-n // sms))
+    blocks = -(-n // rows)
+    threads = min(FORWARD_THREADS, -(-rows // 32) * 32)
+    base = forward_smem_bytes(num_diags, rows, 0, "grid")
+    if base > budget:
+        msg = f"K6 needs {base} bytes of shared memory a block for {num_diags} diagonals; the card has {budget}"
+        raise ValueError(msg)
+    resident = min(num_diags, (budget - base) // (4 * rows))
+    window = window_table(offsets, n, rows)[0]
+    if forward_smem_bytes(num_diags, rows, resident, "grid", window) > budget:
+        window = 0
+    return ForwardPlan(path="grid", resident_diags=resident, window=window, blocks=blocks, threads=threads, rows=rows,
+                       smem_bytes=forward_smem_bytes(num_diags, rows, resident, "grid", window),
+                       partial_floats=2 * _round4(blocks), depth=depth, num_diags=num_diags)
 
 
 def guarded_div(vec, norm):
@@ -182,18 +340,42 @@ def lanczos_forward_rows(offsets, vals, v0, depth):
         raise ValueError(msg)
     if device.type == "cpu":
         return lanczos_forward_plain(offsets, vals, v0, depth)
-    xs = torch.empty((depth + 1, n), dtype=torch.float32, device=device)
-    coef = torch.empty((2, depth), dtype=torch.float32, device=device)
-    work = torch.empty(n, dtype=torch.float32, device=device)
-    partials = torch.empty(_PARTIALS, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
+        operator = tuple(int(d) for d in offsets)
+        plan = _forward_plan(n, depth, operator, device)
+
+        def empty(*shape):
+            return torch.empty(shape, dtype=torch.float32, device=device)
+
+        xs, coef = empty(depth + 1, n), empty(2, depth)
+        grid = plan.path == "grid"
+        # r, and w where the state is in device memory; the partials and
+        # the barrier's counter: the grid path's alone.
+        scratch = empty(1 if plan.state == "registers" else 2, n) if grid else None
+        partials = empty(plan.partial_floats) if grid else None
+        counter = torch.zeros(1, dtype=torch.int32, device=device) if grid else None
+        table = _window_arg(operator, n, plan.rows, xs.device) if plan.window else None
         LANCZOS_FORWARD.launch(
-            vals.data_ptr(), v0.data_ptr(), xs.data_ptr(), coef[0].data_ptr(),
-            coef[1].data_ptr(), work.data_ptr(), partials.data_ptr(), _PARTIALS, n,
-            len(offsets), native.offsets_arg(offsets, n, device).data_ptr(), depth,
-            native.stream(device),
+            vals.data_ptr(), v0.data_ptr(), xs.data_ptr(), coef[0].data_ptr(), coef[1].data_ptr(),
+            *(None if t is None else t.data_ptr() for t in (scratch, partials, counter)),
+            n, len(offsets), native.offsets_arg(offsets, n, device).data_ptr(),
+            None if table is None else table.data_ptr(), depth, int(not grid), plan.blocks,
+            plan.threads, plan.rows, plan.resident_diags, plan.window, plan.smem_bytes, native.stream(device),
         )
     return xs, coef[0], coef[1]
+
+
+@functools.lru_cache(maxsize=64)
+def _forward_plan(n, depth, offsets, device):
+    """``forward_plan`` on ``device``, made once for each operator and depth."""
+    return forward_plan(n, depth, *native.device_limits(device), offsets=offsets)
+
+
+@functools.lru_cache(maxsize=64)
+def _window_arg(offsets, n, rows, device):
+    """``window_table``'s table as an int32 tensor on ``device``, built once
+    for each operator and block size."""
+    return torch.tensor(window_table(offsets, n, rows)[1], dtype=torch.int32, device=device)
 
 
 def lanczos_adjoint_rows(offsets, vals, xs, alphas, betas, inv_norm, dxs, dalphas, dbetas):

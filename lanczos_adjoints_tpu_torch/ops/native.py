@@ -56,7 +56,9 @@ _SIGNATURES = {
         "lat_dia_dvals": (_P, _P, _P, _I, _I, _P, _P),
     },
     "lanczos_dia": {
-        "lat_lanczos_dia_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P),
+        "lat_lanczos_dia_forward": (
+            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        ),
         "lat_lanczos_dia_adjoint": (
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
             _I, _I, _I, _I, _I, _P,
@@ -247,7 +249,7 @@ _DEVICE_LIMITS = {}
 
 def device_limits(device):
     """``(SMs, opt-in shared memory bytes a block)`` of a CUDA device, for
-    the launch plans of K7 and K9."""
+    the launch plans of K6, K7 and K9."""
     index = torch.device(device).index
     index = torch.cuda.current_device() if index is None else index
     if index not in _DEVICE_LIMITS:

@@ -1,8 +1,8 @@
-"""Time design variants of the port's K1, K2, K3, K7, K9 and K10 kernels side by side on one GPU.
+"""Time design variants of the port's K1, K2, K3, K6, K7, K9 and K10 kernels side by side on one GPU.
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc:
-``python3 scripts/torch_kernel_variants.py [--only k1,k2,k3,k7,k9,k10] [--parent DIR]``
-(all six kernels unless ``--only`` names some). Each variant is the
+``python3 scripts/torch_kernel_variants.py [--only k1,k2,k3,k6,k7,k9,k10] [--parent DIR]``
+(all seven kernels unless ``--only`` names some). Each variant is the
 kernel's source under ``lanczos_adjoints_tpu_torch/csrc/`` with one
 constant replaced, compiled into its own library in a temporary
 directory; the package's own build is left alone. It prints each
@@ -38,6 +38,15 @@ variant's register count and time beside the chosen one's:
   (16,384, 90, full) and (16,384, 250, full), CUDA events, each result
   held to the plain version; with the registers, stack and spill bytes of
   the three paths' instantiations;
+- K6 (``lanczos_dia.cu``): the kernel as ``forward_plan`` sets it up,
+  without its shared window of x, with 256 threads a block (32 rows a
+  thread in registers) and, on the cluster path, on 8 blocks, at
+  ``K6_SHAPES`` (K7's below); then the grid path against the cluster path
+  of 16 and of 8 blocks on the 128^2, 256^2 and 362^2 Laplacians (the
+  cluster plans past the planner's run on a build whose C entry takes
+  every cluster instantiation); with the registers, stack and spill bytes
+  of its instantiations; and the host's microseconds a K6 launch, in
+  parts, at n = 16,384 and 2^20;
 - K7 (``lanczos_dia.cu``): the kernel as ``adjoint_plan`` sets it up, with
   all of dvals in device memory, with phase c's rows in chunks of 1, 2,
   4 and 8 (in place of 2, or of 4 where some diagonals of dvals are
@@ -70,8 +79,8 @@ whole checkout, the paths that launch K9 (the Arnoldi VJPs of
 run with each tree's own code in a process of its own. The parent's K7
 (its occupancy-sized grid, its host offsets) runs at the same shapes but
 65 diagonals (more than it takes), parent, this, this, parent, by the profiler's device time and
-CUDA events; with DIR a whole checkout the fused Lanczos VJP at 1024^2
-and 1000^2 runs with each tree's own code in a process of its own.
+CUDA events; with DIR a whole checkout the fused Lanczos VJP at 1024^2,
+1000^2 and 128^2 runs with each tree's own code in a process of its own.
 """
 
 import argparse
@@ -85,6 +94,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import torch
 
@@ -971,7 +981,7 @@ from lanczos_adjoints_tpu_torch.utils.timing import events_ms
 
 pin_float32()
 out = {}
-for m in (1024, 1000):
+for m in (1024, 1000, 128):
     matvec, vals = sparse.sparse_operator(test_util.laplacian_2d(m), device="cuda")
     v0 = torch.ones(m * m, device="cuda")
     estimate = lanczos.tridiag(matvec, cs.DEPTH, reortho="none")
@@ -982,7 +992,7 @@ print("K7PATHS " + json.dumps(out), flush=True)
 
 
 def k7_paths(parent):
-    """The fused Lanczos VJP at 1024^2 and 1000^2, each tree's own code in a
+    """The fused Lanczos VJP at 1024^2, 1000^2 and 128^2, each tree's own code in a
     process of its own: parent, this, this, parent."""
     here = Path(__file__).resolve().parent.parent
     runs = []
@@ -995,6 +1005,320 @@ def k7_paths(parent):
     for key in runs[0][1]:
         print(f"K7 path {key}: " + ", ".join(f"{label} {times[key]:.3f} ms" for label, times in runs)
               + f"; clocks {cs._clocks()}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# K6: the fused Lanczos forward
+# ---------------------------------------------------------------------------
+
+# K6's shapes: K7's (the 2-D Laplacian at 2^20, 1,000,000 and 16,384, the
+# 9- and 27-point stencils and 65 diagonals at 2^20), K = 90.
+K6_SHAPES = K7_SHAPES
+# The Laplacians on which the grid and the cluster path are timed against
+# each other: 128^2, 256^2 and 362^2 (n = 131,044, the largest square grid
+# below 131,072).
+K6_CROSSOVER = (128, 256, 362)
+
+
+def _k6_data(shapes=K6_SHAPES):
+    """``{(n, kind): (offsets, vals, v0, plain result)}``: the 2-D Laplacian
+    or a symmetric operator on one of ``K7_BANDS``, v0 seeded."""
+    rng = __import__("numpy").random.default_rng(18)
+    data = {}
+    for n, kind in shapes:
+        if kind == "laplacian":
+            _mat, dia, vals = cs._laplacian(int(round(n ** 0.5)))
+        else:
+            dia, vals = cs._symmetric_dia(rng, K7_BANDS[kind], n)
+        v0 = cs._tensor(rng, dia.shape[0])
+        data[(dia.shape[0], kind)] = (dia.offsets, vals, v0, fl.lanczos_forward_plain(dia.offsets, vals, v0, K7_DEPTH))
+    return data
+
+
+def _k6_err(got, want):
+    return max(cs._rel_err(a, b) for a, b in zip(got, want))
+
+
+def k6_runner(fn, offsets, vals, v0, plan, zero_counter=True):
+    """A closure that launches one K6 library's ``lat_lanczos_dia_forward``
+    (this tree's C interface) with ``plan`` and returns (xs, alphas, betas);
+    the grid barrier's counter is zeroed before each launch unless
+    ``zero_counter`` is false (the cluster path does not read it)."""
+    fn.argtypes = list(native._SIGNATURES["lanczos_dia"]["lat_lanczos_dia_forward"])
+    n, depth = v0.shape[0], plan.depth
+    xs, coef = torch.empty((depth + 1, n), device="cuda"), torch.empty((2, depth), device="cuda")
+    scratch = torch.empty((2, n), device="cuda")
+    partials = torch.empty(max(plan.partial_floats, 1), device="cuda")
+    counter = torch.zeros(1, dtype=torch.int32, device="cuda")
+    offs = native.offsets_arg(offsets, n, "cuda")
+    table = torch.tensor(fl.window_table(offsets, n, plan.rows)[1], dtype=torch.int32, device="cuda")
+
+    def run():
+        if zero_counter:
+            counter.zero_()
+        native.check(fn(vals.data_ptr(), v0.data_ptr(), xs.data_ptr(), coef[0].data_ptr(), coef[1].data_ptr(),
+                        scratch.data_ptr(), partials.data_ptr(), counter.data_ptr(), n, len(offsets),
+                        offs.data_ptr(), table.data_ptr(), depth, int(plan.path == "cluster"), plan.blocks,
+                        plan.threads, plan.rows, plan.resident_diags, plan.window, plan.smem_bytes,
+                        torch.cuda.current_stream().cuda_stream), "K6")
+        return xs, coef[0], coef[1]
+
+    return run
+
+
+def _parent_k6_runner(fn, offsets, vals, v0):
+    """The parent's ``lat_lanczos_dia_forward`` (an occupancy-sized grid, three
+    grid barriers a step; offsets as a device array)."""
+    fn.argtypes = [_P] * 7 + [_I, _I, _I, _P, _I, _P]
+    n = v0.shape[0]
+    xs, coef = torch.empty((K7_DEPTH + 1, n), device="cuda"), torch.empty((2, K7_DEPTH), device="cuda")
+    work, capacity = torch.empty(n, device="cuda"), 2 * 8192
+    partials = torch.empty(capacity, device="cuda")
+    offs = native.offsets_arg(offsets, n, "cuda")
+
+    def run():
+        native.check(fn(vals.data_ptr(), v0.data_ptr(), xs.data_ptr(), coef[0].data_ptr(), coef[1].data_ptr(),
+                        work.data_ptr(), partials.data_ptr(), capacity, n, len(offsets), offs.data_ptr(), K7_DEPTH,
+                        torch.cuda.current_stream().cuda_stream), "parent K6")
+        return xs, coef[0], coef[1]
+
+    return run
+
+
+def _timed(run, reps, symbol):
+    """``(device ms per launch or None, ms by events, clocks)`` of ``run``."""
+    run()
+    ms, clocks = cs._events_ms_clocked(run, reps)
+    _wall, kernels, _counts = cs._profiled(lambda: [run() for _ in range(reps)])
+    return cs._per_launch_ms(kernels, symbol), ms, clocks
+
+
+def _dev(device):
+    return f"{device:.4f}" if device is not None else "not measured"
+
+
+def k6_parent(tmp, parent):
+    """K6 at ``K6_SHAPES``: the parent's kernel and this tree's wrapper,
+    parent, this, this, parent, by the profiler's device time and CUDA events."""
+    lib = build_parent(parent, "lanczos_dia.cu", tmp / "parent_k6")
+    for (n, kind), (offsets, vals, v0, want) in _k6_data().items():
+        runs = {"parent": _parent_k6_runner(lib.lat_lanczos_dia_forward, offsets, vals, v0),
+                "this": lambda offsets=offsets, vals=vals, v0=v0: fl.lanczos_forward_rows(offsets, vals, v0, K7_DEPTH)}
+        errs = {label: _k6_err(run(), want) for label, run in runs.items()}
+        reps = 5 if n > 100_000 else 20
+        times = []
+        for label in ("parent", "this", "this", "parent"):
+            device, ms, clocks = _timed(runs[label], reps, "lanczos_forward_kernel")
+            times.append(f"{label} {_dev(device)} ms on the device, {ms:.4f} ms by events ({clocks})")
+        plan = cs._k6_plan(offsets, n, K7_DEPTH)
+        print(f"K6 n={n} {kind} K={K7_DEPTH} (this: {plan.path} path, {plan.resident_diags} of {plan.num_diags} "
+              f"diagonals on chip, state in {plan.state}): " + "; ".join(times)
+              + f"; rel err against the plain version: parent {errs['parent']:.2e}, this {errs['this']:.2e}",
+              flush=True)
+
+
+def k6_ptxas(report):
+    """``[(instantiation, registers, stack, spill stores, spill loads)]`` of K6's instantiations."""
+    rows, current, frame = [], None, (0, 0, 0)
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            match = re.search(r"lanczos_forward_kernelILb([01])ELi(\d+)ELb([01])E", line)
+            current = (f"{'cluster' if int(match[1]) else 'grid'} path, state in "
+                       f"{f'registers ({match[2]} slots)' if int(match[2]) else 'device memory'}, "
+                       f"{'window' if int(match[3]) else 'x from device memory'}") if match else None
+            frame = (0, 0, 0)
+        elif current and "bytes stack frame" in line:
+            frame = tuple(int(v) for v in re.findall(r"(\d+) bytes", line)[:3])
+        elif current and "Used" in line and "registers" in line:
+            rows.append((current, int(re.search(r"Used (\d+) registers", line)[1]), *frame))
+            current = None
+    return rows
+
+
+def _print_ptxas(label, report):
+    print(f"K6 ({label}): " + "; ".join(f"{name} {regs} registers, stack {stack} B, spill {st}/{ld} B"
+                                        for name, regs, stack, st, ld in k6_ptxas(report)), flush=True)
+
+
+_K6_THREADS = "constexpr int kFwdThreads = 512;"
+_K6_SLOTS = "constexpr int kFwdSlots = 16;"
+# The C entry opened to every cluster instantiation (16 slots, no window),
+# for cluster plans past the planner's: 8 rows a thread or more (65,536,
+# 131,044) and x from distributed shared memory without the window.
+_K6_OPEN_CLUSTER = [
+    ("resident_diags != num_diags || !win || !few", "resident_diags != num_diags || !regs"),
+    ("    auto kernel = &lanczos_forward_kernel<true, kFwdFewSlots, true>;",
+     "    auto kernel = few ? (win ? &lanczos_forward_kernel<true, kFwdFewSlots, true>\n"
+     "                             : &lanczos_forward_kernel<true, kFwdFewSlots, false>)\n"
+     "                      : (win ? &lanczos_forward_kernel<true, kFwdSlots, true>\n"
+     "                             : &lanczos_forward_kernel<true, kFwdSlots, false>);"),
+]
+# The C entry making its launch checks (check_forward_launch) on its
+# first launch of each path only: what the checks cost the host.
+_K6_CHECKS_ONCE = [
+    (f"{pad}err = check_forward_launch(kernel, {flag}, blocks, threads, smem);",
+     f"{pad}static const cudaError_t once = check_forward_launch(kernel, {flag}, blocks, threads, smem);\n"
+     f"{pad}err = once;") for pad, flag in (("    ", "true"), ("  ", "false"))]
+
+
+def k6_plan_on(path, n, offsets, blocks=fl.CLUSTER_BLOCKS, window=True):
+    """K6's plan on ``path`` whatever n: the grid as ``forward_plan`` lays it
+    out above ``CLUSTER_MAX_N``; the cluster of ``blocks`` blocks with all
+    diagonals of the values on chip, and the window of x where ``window``
+    asks for it and it fits (raises ``ValueError`` where the cluster's
+    shared memory cannot hold the rest)."""
+    sms, smem = native.device_limits("cuda")
+    if path == "grid":
+        with mock.patch.object(fl, "CLUSTER_MAX_N", 0):
+            return fl.forward_plan(n, K7_DEPTH, sms, smem, offsets=offsets)
+    num_diags, budget = len(offsets), smem - fl.SMEM_RESERVE
+    rows = -(-(-(-n // blocks)) // 4) * 4  # n / blocks rounded up to a multiple of 4
+    threads = min(fl.FORWARD_THREADS, -(-rows // 32) * 32)
+    floats = fl.window_table(offsets, n, rows)[0] if window else 0
+    if fl.forward_smem_bytes(num_diags, rows, num_diags, "cluster", floats) > budget:
+        floats = 0
+    smem_bytes = fl.forward_smem_bytes(num_diags, rows, num_diags, "cluster", floats)
+    if smem_bytes > budget:
+        raise ValueError(f"no cluster of {blocks} blocks holds n={n}, {num_diags} diagonals")
+    return fl.ForwardPlan(path="cluster", resident_diags=num_diags, window=floats, blocks=blocks, threads=threads,
+                          rows=rows, smem_bytes=smem_bytes, partial_floats=0, depth=K7_DEPTH, num_diags=num_diags)
+
+
+def k6_variants(tmp):
+    """K6 with ``forward_plan``'s plan and with other plans at ``K6_SHAPES``
+    (without the shared window of x, reading x from device memory; 256
+    threads a block with 32 rows a thread in registers; the cluster path on
+    8 blocks), then the grid and the cluster path against each other on the
+    Laplacians of ``K6_CROSSOVER``; registers, stack and spill; and the
+    host's cost of a K6 launch (``k6_host``)."""
+    builds = {"the kernel": [],
+              "256 threads, 32 rows a thread in registers": [
+                  (_K6_THREADS, "constexpr int kFwdThreads = 256;"), (_K6_SLOTS, "constexpr int kFwdSlots = 32;")],
+              "the cluster open to every instantiation": _K6_OPEN_CLUSTER,
+              "the checks on the first launch only": _K6_CHECKS_ONCE}
+    built = build_parallel({k: (edited_source("lanczos_dia.cu", edits, tmp / f"k6_{i}"), tmp / f"k6_{i}")
+                            for i, (k, edits) in enumerate(builds.items())})
+    for k, (_lib, report) in built.items():
+        _print_ptxas(k, report)
+    lib, lib256 = built["the kernel"][0], built["256 threads, 32 rows a thread in registers"][0]
+    open_lib = built["the cluster open to every instantiation"][0]
+    for (n, kind), (offsets, vals, v0, want) in _k6_data().items():
+        base = cs._k6_plan(offsets, n, K7_DEPTH)
+        plans = {"the plan": (lib, base)}
+        if base.window:
+            plans["no window (x from device memory)"] = (lib if base.path == "grid" else open_lib, k6_variant(base, 0))
+        if base.path == "grid":
+            # 256 threads: the block sums of 8 warps, not 16, in the layout.
+            plans["256 threads"] = (lib256, dataclasses.replace(
+                base, threads=min(256, base.threads), smem_bytes=base.smem_bytes - 4 * 8 * (1 + 2 * 16)))
+        else:
+            plans["the cluster on 8 blocks"] = (lib, k6_plan_on("cluster", n, offsets, blocks=8))
+        for label, (variant, plan) in plans.items():
+            _k6_line(n, kind, label, variant, offsets, vals, v0, want, plan)
+    for m in K6_CROSSOVER:
+        _mat, dia, vals = cs._laplacian(m)
+        n, offsets = m * m, dia.offsets
+        v0 = cs._tensor(__import__("numpy").random.default_rng(m), n)
+        want = fl.lanczos_forward_plain(offsets, vals, v0, K7_DEPTH)
+        for label, path, blocks in (("grid", "grid", None), ("cluster of 16", "cluster", 16),
+                                    ("cluster of 8", "cluster", 8)):
+            try:
+                plan = k6_plan_on(path, n, offsets, **({"blocks": blocks} if blocks else {}))
+            except ValueError as err:
+                print(f"K6 n={n} laplacian K={K7_DEPTH}, {label}: no plan ({err})", flush=True)
+                continue
+            _k6_line(n, "laplacian", label, open_lib, offsets, vals, v0, want, plan)
+    k6_host(lib, built["the checks on the first launch only"][0])
+
+
+def _host_us(fn, reps=100):
+    """Host microseconds a call of ``fn``, the card left to run behind."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - start) / reps * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def k6_host(lib, lib_checks):
+    """The host's cost of one K6 launch at n = 16,384 (the cluster path) and
+    2^20 (the grid path), in its parts: ``forward_plan`` made anew and from
+    the wrapper's cache, the grid barrier's zeroed counter, the C entry
+    (through ctypes) with its launch checks on every launch and
+    (``lib_checks``) on the first only, and the whole wrapper."""
+    data = _k6_data(((16_384, "laplacian"), (1 << 20, "laplacian")))
+    limits = native.device_limits("cuda")
+    device = torch.device("cuda", torch.cuda.current_device())
+    for (n, _kind), (offsets, vals, v0, _want) in data.items():
+        plan = cs._k6_plan(offsets, n, K7_DEPTH)
+        key = tuple(int(d) for d in offsets)
+        parts = {
+            "forward_plan anew": lambda: fl.forward_plan(n, K7_DEPTH, *limits, offsets=offsets),
+            "the cached plan": lambda: fl._forward_plan(n, K7_DEPTH, key, device),
+            "a zeroed counter": lambda: torch.zeros(1, dtype=torch.int32, device="cuda"),
+        }
+        for label, variant in (("the C entry", lib), ("the C entry, checks on the first launch only", lib_checks)):
+            run = k6_runner(variant.lat_lanczos_dia_forward, offsets, vals, v0, plan, zero_counter=plan.path == "grid")
+            parts[label] = run
+        parts["the wrapper"] = lambda: fl.lanczos_forward_rows(offsets, vals, v0, K7_DEPTH)
+        times = {label: _host_us(fn) for label, fn in parts.items()}
+        print(f"K6 host n={n} ({plan.path} path), us a call: "
+              + ", ".join(f"{label} {us:.1f}" for label, us in times.items())
+              + f"; clocks {cs._clocks()}", flush=True)
+
+
+def k6_variant(plan, window):
+    """``plan`` with a window of ``window`` floats (0: x from device memory),
+    its shared bytes recomputed as ``forward_plan`` computes them."""
+    smem = fl.forward_smem_bytes(plan.num_diags, plan.rows, plan.resident_diags, plan.path, window)
+    return dataclasses.replace(plan, window=window, smem_bytes=smem)
+
+
+def _k6_line(n, kind, label, lib, offsets, vals, v0, want, plan):
+    try:
+        run = k6_runner(lib.lat_lanczos_dia_forward, offsets, vals, v0, plan)
+        err = _k6_err(run(), want)
+    except RuntimeError as exc:
+        print(f"K6 n={n} {kind} K={K7_DEPTH}, {label}: refused ({exc})", flush=True)
+        return
+    device, ms, clocks = _timed(run, 5 if n > 100_000 else 20, "lanczos_forward_kernel")
+    print(f"K6 n={n} {kind} K={K7_DEPTH}, {label} ({plan.path} path, {plan.blocks} x {plan.threads}, "
+          f"{plan.rows} rows a block, {plan.resident_diags} of {plan.num_diags} diagonals on chip, window "
+          f"{plan.window}, state in {plan.state}): {_dev(device)} ms on the device, {ms:.4f} ms by events ({clocks}); rel err {err:.2e}",
+          flush=True)
+
+
+# Where K6's time goes: the kernel with parts of its work cut out (results
+# are not the function's).
+_K6_CUTS = {
+    "no barriers (block barriers in their place)": [
+        ("    grid_sync(counter, goal, threads);\n    if (warp == 0) {", "    sync_workers(threads);\n    if (warp == 0) {"),
+        ("    lat::cluster_sync();\n    float t = 0.0f;", "    __syncthreads();\n    float t = 0.0f;")],
+    "no values read": [("            v[u] = ok ? (on_chip ? sk[r] : __ldg(vk + r)) : 0.0f;", "            v[u] = 1.0f;")],
+    "no basis stores": [("      __stcs(x_next + row, xn);", "      (void)x_next;")],
+    "no halo reads": [("        v[u] = source_row<kCluster>(src, s_r, g, rows, first);",
+                       "        v[u] = static_cast<float>(g);")],
+    "no window reads": [("              xj[u] = ok ? wk[r] : 0.0f;", "              xj[u] = static_cast<float>(r);")],
+}
+
+
+def k6_breakdown(tmp):
+    """K6 at (2^20, 5, 90) (the grid path) and (16,384, 5, 90) (the cluster
+    path) with parts of its work cut out."""
+    jobs = {label: (edited_source("lanczos_dia.cu", edits, tmp / f"k6_cut_{i}"), tmp / f"k6_cut_{i}")
+            for i, (label, edits) in enumerate({"the kernel": [], **_K6_CUTS}.items())}
+    built = build_parallel(jobs)
+    data = _k6_data(((1 << 20, "laplacian"), (16_384, "laplacian")))
+    for (n, _kind), (offsets, vals, v0, _want) in data.items():
+        plan = cs._k6_plan(offsets, n, K7_DEPTH)
+        for label, (lib, _report) in built.items():
+            run = k6_runner(lib.lat_lanczos_dia_forward, offsets, vals, v0, plan)
+            device, ms, clocks = _timed(run, 5 if n > 100_000 else 20, "lanczos_forward_kernel")
+            print(f"K6 breakdown n={n} K={K7_DEPTH} ({plan.path} path), {label}: {_dev(device)} ms on the device, "
+                  f"{ms:.4f} ms by events ({clocks})", flush=True)
 
 
 def build_parent(parent, source, workdir):
@@ -1071,15 +1395,15 @@ def parent_comparison(tmp, parent, n=400_000):
 
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", default="k1,k2,k3,k7,k9,k10",
-                        help="comma-separated kernels: k1, k2, k3, k7, k9, k10")
+    parser.add_argument("--only", default="k1,k2,k3,k6,k7,k9,k10",
+                        help="comma-separated kernels: k1, k2, k3, k6, k7, k9, k10")
     parser.add_argument("--parent", type=Path, help="a tree of an earlier commit to time against")
     parser.add_argument("--breakdown", action="store_true",
-                        help="K2, K3, K7 and K9: time the kernel with parts of its work removed")
+                        help="K2, K3, K6, K7 and K9: time the kernel with parts of its work removed")
     args = parser.parse_args(argv)
     only = set(args.only.split(","))
-    if not only <= {"k1", "k2", "k3", "k7", "k9", "k10"}:
-        parser.error(f"--only takes k1, k2, k3, k7, k9, k10, got {args.only!r}")
+    if not only <= {"k1", "k2", "k3", "k6", "k7", "k9", "k10"}:
+        parser.error(f"--only takes k1, k2, k3, k6, k7, k9, k10, got {args.only!r}")
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device", file=sys.stderr)
         return 2
@@ -1094,10 +1418,12 @@ def main(argv) -> int:
                 k2_parent(tmp, args.parent)
             if "k3" in only:
                 k3_parent(tmp, args.parent)
+            if "k6" in only and not args.breakdown:
+                k6_parent(tmp, args.parent)
             if "k7" in only and not args.breakdown:
                 k7_parent(tmp, args.parent)
-                if (args.parent / "chip_smoke.py").exists():
-                    k7_paths(args.parent)
+            if only & {"k6", "k7"} and not args.breakdown and (args.parent / "chip_smoke.py").exists():
+                k7_paths(args.parent)
             if "k9" in only:
                 k9_parent(tmp, args.parent)
                 if (args.parent / "chip_smoke.py").exists():
@@ -1108,6 +1434,8 @@ def main(argv) -> int:
             for kernel in ("k2", "k3"):
                 if kernel in only:
                     breakdown(tmp, kernel)
+            if "k6" in only:
+                k6_breakdown(tmp)
             if "k7" in only:
                 k7_breakdown(tmp, args.parent)
             if "k9" in only:
@@ -1117,6 +1445,8 @@ def main(argv) -> int:
                 k2_variants(tmp)
             if "k3" in only:
                 k3_variants(tmp)
+            if "k6" in only:
+                k6_variants(tmp)
             if "k7" in only:
                 k7_variants(tmp)
             if "k9" in only:

@@ -507,3 +507,171 @@ def test_adjoint_plan_takes_any_n_and_depth():
         _adjoint_plan(100, (0,), depth=101)
     with pytest.raises(ValueError, match="shared memory"):
         _adjoint_plan(1 << 20, tuple(range(2_000)), smem=8_192)
+
+
+def _band(num_diags):
+    """``num_diags`` contiguous offsets around the main diagonal."""
+    return tuple(range(-(num_diags // 2), num_diags - num_diags // 2))
+
+
+def _forward_plan(n, num_diags, sms=H100_SMS, smem=H100_SMEM, depth=90, offsets=None):
+    """K6's plan for ``offsets``, by default a band of ``num_diags``."""
+    return fused_lanczos.forward_plan(n, min(depth, n), sms, smem, offsets=offsets or _band(num_diags))
+
+
+def _forward_smem(num_diags, rows, resident, path, window=0):
+    """The offsets and the window table (3 D + 4 ints), each rounded up to
+    4, 532 floats of block sums (16 warps' and 2 totals, and 2 x 16 x 16
+    warp sums pushed across a cluster), the block's rows of the resident
+    values, on the cluster path its rows of r, and the window of x."""
+    round4 = lambda count: -(-count // 4) * 4  # noqa: E731
+    return 4 * (round4(num_diags) + round4(3 * num_diags + 4) + 532
+                + (resident + (path == "cluster")) * rows + window)
+
+
+# K6's launch plan on an H100: (n, diagonals) -> path, blocks x rows,
+# threads, resident diagonals of the values, where the state lives.
+@pytest.mark.parametrize(("n", "num_diags", "path", "blocks", "rows", "threads", "resident", "state"), [
+    # bench.py's 1024^2 Laplacian: the values' 5 x 7,944 floats (158,880 B)
+    # resident, 16 rows a thread in registers.
+    (1 << 20, 5, "grid", 132, 7_944, 512, 5, "registers"),
+    (1_000_000, 5, "grid", 132, 7_576, 512, 5, "registers"),
+    # 65 diagonals at 2^20: 7 of them fit, the others read each step.
+    (1 << 20, 65, "grid", 132, 7_944, 512, 7, "registers"),
+    # Tridiagonal: past 16 rows a thread the state moves to device memory.
+    (1_200_000, 3, "grid", 132, 9_092, 512, 3, "device"),
+    (3_000_000, 3, "grid", 132, 22_728, 512, 2, "device"),
+    # The cluster path: the 128^2 Laplacian, the exhausted case (one
+    # diagonal) and the tridiagonal parity operators.
+    (16_384, 5, "cluster", 16, 1_024, 512, 5, "registers"),
+    (16_384, 1, "cluster", 16, 1_024, 512, 1, "registers"),
+    (4_736, 3, "cluster", 16, 296, 320, 3, "registers"),
+    (4_739, 3, "cluster", 16, 300, 320, 3, "registers"),
+])
+def test_forward_plan_on_an_h100(n, num_diags, path, blocks, rows, threads, resident, state):
+    plan = _forward_plan(n, num_diags)
+    assert (plan.path, plan.blocks, plan.rows, plan.threads, plan.resident_diags, plan.state) == (
+        path, blocks, rows, threads, resident, state)
+    assert plan.values == ("resident" if resident == num_diags else "streamed")
+    assert plan.smem_bytes == _forward_smem(num_diags, rows, resident, path, plan.window)
+    assert plan.smem_bytes <= H100_SMEM - fused_lanczos.SMEM_RESERVE
+    assert plan.blocks * plan.rows >= n and plan.rows % 4 == 0
+    if path == "grid":
+        assert (plan.blocks - 1) * plan.rows < n
+        assert plan.partial_floats == 2 * -(-plan.blocks // 4) * 4
+    else:
+        assert plan.partial_floats == 0
+
+
+def test_forward_plan_takes_the_cluster_path_up_to_its_limit():
+    """Up to CLUSTER_MAX_N (16,384, the 128^2 Laplacian) the cluster, with
+    its window of x and at most FEW_SLOTS rows a thread (the kernel's one
+    cluster instantiation); above it, or where the cluster's shared memory
+    cannot hold the values, r and the window, the grid."""
+    top = fused_lanczos.CLUSTER_MAX_N
+    assert top == 16_384
+    cluster = _forward_plan(top, 5, offsets=(-128, -1, 0, 1, 128))
+    assert (cluster.path, cluster.blocks, cluster.slots, cluster.window) == (
+        "cluster", fused_lanczos.CLUSTER_BLOCKS, fused_lanczos.FEW_SLOTS, 1_280)
+    assert _forward_plan(top + 1, 5).path == "grid"
+    assert _forward_plan(16_384, 5, smem=24 * 1024).path == "grid"
+    # 40 diagonals 410 apart: the values (160 KB) fit a cluster's block, but
+    # not beside a window of 41 spans of 1,024 rows.
+    spread = _forward_plan(16_384, 40, offsets=tuple(410 * k for k in range(-20, 20)))
+    assert (spread.path, spread.blocks, spread.rows) == ("grid", 128, 128)
+    for n in (4_736, 4_739, 16_384):
+        plan = _forward_plan(n, 3)
+        assert plan.path == "cluster" and plan.window >= plan.rows and plan.slots == fused_lanczos.FEW_SLOTS
+
+
+@pytest.mark.parametrize(("n", "offsets", "slots", "windowed"), [
+    # The grid path's six instantiations: 4 rows a thread or fewer (256^2;
+    # 65 diagonals 1,001 apart, no room for the window), 16 (1024^2; 65
+    # diagonals), the state in device memory (1.2M with the window, 3M
+    # without).
+    (65_536, (-256, -1, 0, 1, 256), 4, True),
+    (65_536, tuple(1_001 * k for k in range(-32, 33)), 4, False),
+    (1 << 20, (-1024, -1, 0, 1, 1024), 16, True),
+    (1 << 20, tuple(range(-32, 33)), 16, False),
+    (1_200_000, (-1, 0, 1), 0, True),
+    (3_000_000, (-1, 0, 1), 0, False),
+])
+def test_forward_plan_picks_each_grid_instantiation(n, offsets, slots, windowed):
+    plan = _forward_plan(n, len(offsets), offsets=offsets)
+    assert (plan.path, plan.slots, bool(plan.window)) == ("grid", slots, windowed)
+    assert plan.state == ("registers" if slots else "device")
+
+
+def test_forward_plan_on_a_small_card():
+    """66 SMs: 15,888 rows a block, 31 a thread (the state in device
+    memory), 3 of the 5 diagonals of the values on chip."""
+    plan = _forward_plan(1 << 20, 5, sms=66)
+    assert (plan.path, plan.blocks, plan.rows, plan.threads, plan.resident_diags, plan.state) == (
+        "grid", 66, 15_888, 512, 3, "device")
+    assert _forward_plan(1 << 20, 5, smem=24 * 1024).resident_diags == 0
+    with pytest.raises(ValueError, match="shared memory"):
+        _forward_plan(1 << 20, 2_000, smem=8_192)
+
+
+@pytest.mark.parametrize(("n", "depth"), [(100, 0), (100, 101), (16_384, -1)])
+def test_forward_plan_refuses_depth_outside_1_n(n, depth):
+    with pytest.raises(ValueError, match="no K6 plan"):
+        fused_lanczos.forward_plan(n, depth, H100_SMS, H100_SMEM, offsets=(-1, 0, 1))
+
+
+_LAPLACIAN_2D = (-1024, -1, 0, 1, 1024)
+
+
+@pytest.mark.parametrize(("n", "offsets", "window"), [
+    # The 1024^2 Laplacian: the block's 7,944 rows and 1,024 either side
+    # (40 KB) beside the values' 158.9 KB.
+    (1 << 20, _LAPLACIAN_2D, 9_992),
+    # 65 diagonals: 7 of the values fill the shared memory, no window.
+    (1 << 20, tuple(range(-32, 33)), 0),
+    # Offsets half way round: three spans of 7,944 rows.
+    (1 << 20, (-(1 << 19) + 3, 0, (1 << 19) - 3), 3 * 7_944),
+    # The cluster path at 16,384: 1,024 rows and 128 either side.
+    (16_384, (-128, -1, 0, 1, 128), 1_280),
+    (4_739, (-1, 0, 1), 302),
+])
+def test_forward_plan_puts_the_window_beside_the_values(n, offsets, window):
+    plan = _forward_plan(n, len(offsets), offsets=offsets)
+    assert plan.window == window
+    assert plan.smem_bytes == _forward_smem(len(offsets), plan.rows, plan.resident_diags, plan.path, window)
+    assert plan.smem_bytes <= H100_SMEM - fused_lanczos.SMEM_RESERVE
+    # The values keep the shared memory they have without the window.
+    budget = H100_SMEM - fused_lanczos.SMEM_RESERVE
+    alone = (budget - _forward_smem(len(offsets), plan.rows, 0, "grid")) // (4 * plan.rows)
+    assert plan.resident_diags == (len(offsets) if plan.path == "cluster" else min(len(offsets), alone))
+
+
+@pytest.mark.parametrize(("n", "offsets", "rows"), [
+    (1 << 20, _LAPLACIAN_2D, 7_944),
+    (1 << 20, (-(1 << 19) + 3, 0, (1 << 19) - 3), 7_944),
+    (100, (-1, 0, 1), 8),  # the last block wraps round to the first rows
+    (97, (3, 50, -40), 12),  # no main diagonal; spans that overlap across the wrap
+    (4_739, (-1, 0, 1), 300),
+])
+def test_window_table_maps_every_read_to_its_row(n, offsets, rows):
+    """Replays the kernel's use of the table: ``stage_halo`` fills window
+    slot idx with row (r0 + rel) mod n from its span, the block's own rows
+    sit at the first entry, and the matvec reads row r0 + r + d_k at
+    ``base_k + r``: every read finds its row, in every block."""
+    floats, table = fused_lanczos.window_table(offsets, n, rows)
+    own, segs = table[0], table[1]
+    starts = table[2:2 + 2 * segs:2]
+    rels = table[3:3 + 2 * segs:2]
+    bases = table[2 + 2 * segs:2 + 2 * segs + len(offsets)]
+    assert len(table) == 3 * len(offsets) + 4 and starts[0] == 0
+    for r0 in range(0, n, rows):
+        length = min(n, r0 + rows) - r0
+        window = [None] * floats
+        for r in range(length):
+            window[own + r] = r0 + r
+        for j in range(floats - length):
+            idx = j if j < own else j + length
+            i = max(k for k in range(segs) if starts[k] <= idx)
+            window[idx] = (r0 + rels[i] + idx - starts[i]) % n
+        for k, d in enumerate(offsets):
+            for r in range(length):
+                assert window[bases[k] + r] == (r0 + r + d) % n

@@ -138,3 +138,30 @@ def test_arnoldi_bounds(n, depth, reortho, bound_ms, by, streamed_ms, on_chip):
     assert got["bound_ms"] <= got["bound_ms_streamed"]
     reads = 3 if reortho == "full" else 2
     assert got["bytes_streamed"] - got["bound_bytes"] == 4 * reads * n * depth * (depth + 1) // 2
+
+
+@pytest.mark.parametrize(
+    ("n", "num_diags", "once_ms", "parent_ms", "per_step"),
+    [
+        (1 << 20, 5, 0.1214, 1.465, 3),  # all of the values on chip: r, its shifted reads, the basis row
+        (1 << 20, 65, 0.1966, 8.226, 61),  # 58 diagonals of the values read each step
+        (16_384, 5, 0.0019, 0.0229, 1),  # the cluster path: r in shared memory
+    ],
+)
+def test_k6_traffic(n, num_diags, once_ms, parent_ms, per_step):
+    """K6's bytes as ``[timing-sparse]`` prints them at K = 90: each array
+    once (the bound; 121.4 us at (2^20, 5)), the parent's (D + 8) vectors
+    a step, and this schedule's 3 (grid) or 1 (cluster) a step, one more
+    for each diagonal of the values not in shared memory."""
+    from lanczos_adjoints_tpu_torch.ops import fused_lanczos
+
+    cs = _chip_smoke()
+    band = tuple(range(-(num_diags // 2), num_diags - num_diags // 2))
+    plan = fused_lanczos.forward_plan(n, 90, H100_SMS, 232_448, offsets=band)
+    got = cs._k6_traffic(n, num_diags, 90, plan)
+    ms = {key: 1e3 * v / cs.PEAK_BYTES for key, v in got.items()}
+    assert ms["bytes_once"] == pytest.approx(once_ms, rel=5e-3)
+    assert ms["bytes_parent_schedule"] == pytest.approx(parent_ms, rel=5e-3)
+    assert got["bytes_parent_schedule"] == 4 * 90 * (num_diags + 8) * n
+    assert got["bytes_schedule"] == 4 * (90 * per_step + plan.resident_diags + 2) * n
+    assert got["bytes_once"] <= got["bytes_schedule"] < got["bytes_parent_schedule"]
