@@ -98,14 +98,18 @@ Phases, in order:
      and with only the vector changing (warm), beside cuSPARSE CSR under
      both, the bound on the bytes the nonzeros need, its plain version
      and the pack;
- 20. halo parity: K11 (``csrc/halo_dia.cu``) on P in {1, 2, 8}
-     partitions, one allocation each, NaN-poisoned receive buffers, two
-     successive calls, against its plain version and K4 on the whole
-     vector, offsets (-1, 0, 1), (-130, -7, 0, 7, 130),
-     (-1024, -1, 0, 1, 1024), 65 and 100 diagonals with random values in
-     every slot, n in {16,384, 1,000,000, 1,048,576}, and n = 1,000 over
-     8 partitions with offsets +-63 (a halo wider than half the rows); the Function's dv (K11 on the
-     transpose) against K4^T and dvals against K5 (bit for bit);
+ 20. halo parity: K11 (``csrc/halo_dia.cu``) on P in {1, 2, 8, 64}
+     partitions (where the local rows hold the halo), on one allocation
+     a partition, on views of one tensor and on views offset by one
+     float (1 row a thread), bit for bit against K4 on the whole vector
+     and its plain version with fused multiply-adds, offsets (-1, 0, 1),
+     (-130, -7, 0, 7, 130), (-1024, -1, 0, 1, 1024), 65 and 100
+     diagonals with random values in every slot, n in {16,384,
+     1,000,000, 1,048,576}, and n = 1,000 over 8 partitions with offsets
+     +-63 (a halo wider than half the rows); both paths (4 rows a thread
+     and 1) reached; the C entry refuses a vector launch on misaligned
+     operands; the Function's dv (K11 on the transpose) against K4^T and
+     dvals against K5 (bit for bit);
  21. the halo slice: the multi-device scaling benchmark's 5-diagonal
      operator at n = 2^20 -> ``parallel.sharded_dia_operator`` ->
      ``tridiag(K = 30)``, one VJP with the all-ones cotangent at P in
@@ -115,8 +119,9 @@ Phases, in order:
  22. the mesh slice: ``train.gp.dryrun_multichip(8)`` with the fused
      kernels, then one ``adj400k`` step over an 8-partition rows mesh
      against the unsharded step (loss 1e-4, gradient 1e-3), launches 8x;
- 23. K11's time per launch at n = 2^20, P = 8 and 1, beside its bound,
-     its plain version, K4 on the whole vector and cuSPARSE. The kernels
+ 23. K11's time per launch at n = 2^20, P = 8, 4, 2 and 1, beside its
+     bound and traffic, its plain version, K4 on the whole vector and
+     cuSPARSE. The kernels
      of every slice, with their numbers, form one JSON line.
 Every profiled run prints the profiler's launch count of each of the
 port's kernels beside the registry's, and flags a kernel whose launches
@@ -126,6 +131,7 @@ The last two lines are the card (``name, power.limit``) and
 ``{"ok": true, "device": {...}}``.
 """
 
+import ctypes
 import functools
 import itertools
 import json
@@ -2453,56 +2459,124 @@ def _events_ms_sync(fn, reps):
 # ---------------------------------------------------------------------------
 
 # [parity-halo] shapes: n = 1,000,000 is not a multiple of P x 1024 (the
-# JAX kernel's tiling); at n = 16,384, P = 8 and halo 1024 every row of a
-# partition is an edge row.
+# JAX kernel's tiling), and over 64 partitions its 15,625 local rows take
+# K11's scalar path; at n = 16,384, P = 8 and halo 1024 every row of a
+# partition is an edge row. A case runs at every P whose local rows hold
+# its halo.
 HALO_SIZES = (16_384, 1_000_000, 1 << 20)
 HALO_OFFSETS = ((-1, 0, 1), (-130, -7, 0, 7, 130), (-1024, -1, 0, 1, 1024), WIDE_65, WIDE_100)
-HALO_PARTITIONS = (1, 2, 8)
+HALO_PARTITIONS = (1, 2, 8, 64)
 # (n, offsets, P) where the halo is wider than half the local rows (63 of
-# 125): a partition's first and last 63 rows overlap.
+# 125, and 125 % 4 != 0: the scalar path): a partition's first and last
+# 63 rows overlap.
 HALO_WIDE = ((1000, (-63, 0, 63), 8), (1000, (-63, -62, -1, 0, 1, 62, 63), 8))
 # [slice-halo]: multihost_scaling's measured path at its defaults.
 HALO_N, HALO_BANDWIDTH, HALO_DEPTH, HALO_MESHES = 1 << 20, 1024, 30, (1, 2, 4, 8)
 HALO_KERNELS = ("halo_dia_matvec", "halo_dia_matvec_transposed", *DIA_KERNELS)
 
 
-def phase_parity_halo():
-    """K11 against its plain version and K4 on the global vector, on one
-    allocation per partition with NaN-poisoned receive buffers, over two
-    successive calls; its Function's dv (K11 on the transpose) and dvals
-    (against K5, bit for bit)."""
-    from lanczos_adjoints_tpu_torch import parallel
-    from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
+def _offset_by_one(t):
+    """A contiguous copy of ``t`` that starts one float past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _k11_refusals(failures):
+    """The C entry refuses a vector launch (4 rows a thread) on values
+    offset by one float, on local rows that are no multiple of 4 and on a
+    partition table with one misaligned block, without launching."""
+    from lanczos_adjoints_tpu_torch.ops import native
     from lanczos_adjoints_tpu_torch.parallel import fused_halo as fh
 
-    print("[parity-halo] K11 vs its plain version and K4, P partitions on one card", flush=True)
-    failures = []
+    fn = native.library("halo_dia").lat_halo_dia_matvec
+    offsets = (-1, 0, 1)
+    offs = native.offsets_arg(offsets, None, DEVICE)
+    host = (ctypes.c_int * 3)(*offsets)
+    stream = native.stream(torch.device(DEVICE))
+    launches = native.KERNELS["halo_dia_matvec"].launches
+    v, vals = torch.ones(1024, device=DEVICE), torch.ones((3, 1024), device=DEVICE)
+    out = torch.empty_like(v)
+    shifted = _offset_by_one(vals)
+    v_1000, vals_1000 = torch.ones(1000, device=DEVICE), torch.ones((3, 1000), device=DEVICE)
+    parts = [_offset_by_one(vals[:, :512].contiguous()), vals[:, 512:].contiguous()]
+    tables = [fh._pointers(ts) for ts in ([v[:512], v[512:]], parts, [out[:512], out[512:]])]
+    cases = {
+        "values offset by one float": (v.data_ptr(), shifted.data_ptr(), out.data_ptr(), 0, 2, 512, 1024),
+        "local rows 125": (v_1000.data_ptr(), vals_1000.data_ptr(), out.data_ptr(), 0, 8, 125, 1000),
+        "a partition table with one misaligned block": (*tables, 1, 2, 512, 512),
+    }
+    for label, (pv, pw, po, table, parts_, local_n, ld) in cases.items():
+        status = fn(pv, pw, po, table, parts_, local_n, ld, 1, 3, host, offs.data_ptr(), 4, 8, stream)
+        ok = status != 0 and native.KERNELS["halo_dia_matvec"].launches == launches
+        print(f"  K11 refuses a vector launch on {label}: status {status} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"vector launch on {label} accepted")
+    torch.cuda.synchronize()
+
+
+def phase_parity_halo():
+    """K11 bit for bit against K4 on the global vector and against its
+    plain version summed with fused multiply-adds (K4's rounding), on one
+    allocation per partition (so that a partition reads its neighbours'
+    halos where they live) and on views of one tensor, aligned and offset
+    by one float; each case's path (4 rows a thread or 1) and that both
+    are reached; the C entry's refusals; the Function's dv (K11 on the
+    transpose) and dvals (against K5, bit for bit)."""
+    from lanczos_adjoints_tpu_torch import parallel
+    from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.parallel import fused_halo as fh
+
+    print("[parity-halo] K11 vs K4 and its plain version, bit for bit, P partitions on one card", flush=True)
+    failures, paths = [], {1: 0, fh.VECTOR_ROWS: 0}
+    _k11_refusals(failures)
+    sms = native.device_limits(DEVICE)[0]
     rng = np.random.default_rng(13)
     cases = [(n, offsets, HALO_PARTITIONS) for n in HALO_SIZES for offsets in HALO_OFFSETS]
     cases += [(n, offsets, (parts,)) for n, offsets, parts in HALO_WIDE]
     for n, offsets, partitions in cases:
         vals = _tensor(rng, (len(offsets), n))  # every slot, the wrapped ones too
         for parts in partitions:
+            local_n = n // parts
+            if fh.halo_width(offsets) > local_n:
+                continue
             shown = offsets if len(offsets) <= 7 else f"{len(offsets)} diagonals"
             tag = f"n={n} offsets={shown} P={parts}"
-            local_n = n // parts
-            exchange = fh.HaloExchange(parts, fh.halo_width(offsets))
-            recv = exchange.buffers(DEVICE)[0]
-            poisoned = all(bool(torch.isnan(r).all()) for r in recv)
+            plan = fh.halo_plan(offsets, n, parts, sms)
             own = {"memory_format": torch.contiguous_format}  # a new allocation each
             vals_parts = [vals[:, p * local_n:(p + 1) * local_n].clone(**own) for p in range(parts)]
-            for call in (1, 2):
-                v = _tensor(rng, n)
-                v_parts = [v[p * local_n:(p + 1) * local_n].clone(**own) for p in range(parts)]
-                got = torch.cat(fh.halo_dia_parts(offsets, v_parts, vals_parts, exchange))
-                plain = fh.halo_dia_plain(offsets, v, vals, parts)
-                k4 = fd.dia_matvec_rows(offsets, v, vals)
+            v = _tensor(rng, n)
+            v_parts = [v[p * local_n:(p + 1) * local_n].clone(**own) for p in range(parts)]
+            v_off, vals_off = _offset_by_one(v), _offset_by_one(vals)
+            layouts = {
+                "one allocation a partition": (
+                    lambda: torch.cat(fh.halo_dia_parts(offsets, v_parts, vals_parts)),
+                    plan.rows(local_n, *(w.data_ptr() for w in vals_parts))),
+                "views": (lambda: fh.halo_dia_rows(offsets, v, vals, parts), plan.rows(n, vals.data_ptr())),
+                "views offset by one float": (lambda: fh.halo_dia_rows(offsets, v_off, vals_off, parts),
+                                              plan.rows(n, vals_off.data_ptr())),
+            }
+            k4 = fd.dia_matvec_rows(offsets, v, vals)
+            plain = fh.halo_dia_plain(offsets, v, vals, parts, fused=True)
+            taken, ok = [], True
+            for label, (run, rows) in layouts.items():
+                before = dict(fh.LAUNCHES_BY_ROWS)
+                got = run()
                 torch.cuda.synchronize()
-                finite = bool(torch.isfinite(got).all())
-                if not (finite and poisoned):
-                    failures.append(f"{tag} call {call} finite={finite} poisoned={poisoned}")
-                _report(f"K11 {tag} call {call} vs plain", _rel_err(got, plain), TOL_DIA, failures)
-                _report(f"K11 {tag} call {call} vs K4", _rel_err(got, k4), TOL_DIA, failures)
+                path = [r for r, c in fh.LAUNCHES_BY_ROWS.items() if c != before[r]]
+                taken.append(path)
+                for r in path:
+                    paths[r] += 1
+                same = (torch.equal(got, k4), torch.equal(got, plain))
+                if not all(same) or path != [rows]:
+                    print(f"  K11 {tag} {label}: rows a thread {path} (predicted {rows}); bit for bit vs K4 "
+                          f"{same[0]}, vs plain {same[1]}; rel err vs K4 {_rel_err(got, k4):.3e} FAIL", flush=True)
+                    failures.append(f"{tag} {label}")
+                    ok = False
+            print(f"  K11 {tag}: rows a thread {taken} ({', '.join(layouts)}); bit for bit vs K4 and the "
+                  f"plain version {'ok' if ok else 'FAIL'}", flush=True)
             # The operator's Function: dv by K11 on the transpose, dvals
             # by the shift products, against K4^T and K5 on the whole vector.
             op = parallel.sharded_dia_operator(_dia(offsets, n), parallel.device_mesh(parts))
@@ -2517,6 +2591,10 @@ def phase_parity_halo():
             _report(f"K11^T vjp dv {tag} vs K4^T", _rel_err(dv, dv_k4), TOL_DIA, failures)
             _report(f"vjp dvals {tag} vs K5", _rel_err(dvals, dvals_k5), TOL_DVALS, failures)
         del vals
+    print(f"  launches by path: {fh.VECTOR_ROWS} rows a thread {paths[fh.VECTOR_ROWS]}, 1 row a thread "
+          f"{paths[1]}", flush=True)
+    if not all(paths.values()):
+        failures.append(f"a path of K11 was not reached: {paths}")
     if failures:
         msg = f"{len(failures)} halo parity checks failed: {failures[:5]}"
         raise RuntimeError(msg)
@@ -2651,9 +2729,20 @@ def phase_slice_mesh(n_train):
             "profile": profile, "unsharded": {"step_s": results["1"][2], "launches": counts_1}}
 
 
+def _k11_traffic(n, num_diags, parts, halo):
+    """K11's bytes: each array once (the values, v and the output; the
+    bound), the parent kernel's schedule and this one's. Both read the
+    2 P halo floats of the partitions' neighbours once more; the parent's
+    also wrote them into receive buffers and read them back from there.
+    Printed beside the bound, never part of the kernels line."""
+    once = 4 * (num_diags + 2) * n
+    halos = 4 * 2 * parts * halo
+    return {"bytes_once": once, "bytes_parent_schedule": once + 3 * halos, "bytes_schedule": once + halos}
+
+
 def phase_timing_halo(slice_run):
-    """K11's time per launch at n = 2^20, D = 5, P = 8 and 1, beside its
-    bound, its plain version, K4 on the global vector and cuSPARSE; its
+    """K11's time per launch at n = 2^20, D = 5, P = 8, 4, 2 and 1, beside
+    its bound, its plain version, K4 on the whole vector and cuSPARSE; its
     kernels-line entry."""
     from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
     from lanczos_adjoints_tpu_torch.ops import sparse
@@ -2675,10 +2764,12 @@ def phase_timing_halo(slice_run):
         torch.tensor(mat.data, dtype=torch.float32, device=DEVICE), size=mat.shape, check_invariants=True,
     )
     nbytes, ops = 4 * (num_diags + 2) * n, 2 * num_diags * n
-    for parts in (8, 1):
-        exchange = fh.HaloExchange(parts, fh.halo_width(offsets))
+    for parts in (8, 4, 2, 1):
+        traffic = _k11_traffic(n, num_diags, parts, fh.halo_width(offsets))
+        print(f"  P={parts} traffic: each array once {traffic['bytes_once']} B, this schedule "
+              f"{traffic['bytes_schedule']} B, the parent's {traffic['bytes_parent_schedule']} B", flush=True)
         _record(rows, failures, parts, "halo_dia_kernel",
-                [lambda s=s, ex=exchange: fh.halo_dia_rows(offsets, s[0], s[1], ex) for s in sets],
+                [lambda s=s, p=parts: fh.halo_dia_rows(offsets, s[0], s[1], p) for s in sets],
                 [lambda s=s, p=parts: fh.halo_dia_plain(offsets, s[0], s[1], p) for s in sets],
                 nbytes, ops, 48, 8, tols=(TOL_DIA,), library=[lambda s=s: csr @ s[0] for s in sets])
     _record(rows, failures, "K4", "dia_matvec_kernel",
@@ -2692,7 +2783,7 @@ def phase_timing_halo(slice_run):
         "name": "halo_dia_matvec", "route": "cuda", "source": "lanczos_adjoints_tpu_torch/csrc/halo_dia.cu",
         "replaces": "lanczos_adjoints_tpu/parallel/pallas_halo.py:54",
         "launches": slice_run["launches"][HALO_MESHES[-1]]["halo_dia_matvec"], **rows[8], "n": n,
-        "partitions": 8, "by_partitions": {"8": rows[8], "1": rows[1]}, "k4_global": rows["K4"],
+        "partitions": 8, "by_partitions": {str(p): rows[p] for p in (8, 4, 2, 1)}, "k4_global": rows["K4"],
         "ms_in_vjp": _per_launch_ms(profile["kernels"], "halo_dia_kernel") if profile else None,
         "launches_per_vjp": {f"P={p}": c["halo_dia_matvec"] for p, c in slice_run["launches"].items()},
     }

@@ -1,5 +1,5 @@
-// K11: the row-partitioned DIA matvec over a ring of P partitions, with
-// the halo exchange, in one launch.
+// K11: the row-partitioned DIA matvec over a ring of P partitions, each
+// partition reading its neighbours' halos where they lie, in one launch.
 //
 // `lat_halo_dia_matvec` replaces the TPU kernel `_halo_kernel` of
 // lanczos_adjoints_tpu/parallel/pallas_halo.py (launched by
@@ -13,190 +13,221 @@
 //
 // What bounds it on an H100: bytes, as K4. Each partition reads its
 // values and its segment and writes its output once; the halos are 2 P
-// halo floats more. At n = 1,048,576 and D = 5, (D + 2) n 4 bytes =
-// 29.4 MB, 8.76 us at 3.35 TB/s.
+// halo floats more, read from the neighbours' segments. At n = 1,048,576
+// and D = 5, (D + 2) n 4 bytes = 29.4 MB, 8.76 us at 3.35 TB/s.
 //
-// Design. One cooperative launch over all partitions, so that every
-// block is resident and a spin-wait never waits on a block that has not
-// started; the blocks are split evenly over the partitions, and each
-// partition's blocks walk its rows with a grid stride. The TPU kernel's
-// neighbour barrier, RDMAs and DMA semaphores become:
-//   1. send: the first block of partition p stores its first and last
-//      `halo` entries into the receive buffers of l and r, then
-//      (__syncthreads, __threadfence) releases the receiver's flag for
-//      that side with the call's epoch;
-//   2. interior sweep: rows [halo, local_n - halo), whose stencil stays
-//      inside v_p, as K4 computes them (the overlap window of the TPU
-//      kernel);
-//   3. edge fix-up: a block that owns any of the edge rows (the first
-//      and the last `halo` rows, min(2 halo, local_n) in all: where
-//      2 halo > local_n they overlap and every row is an edge row)
-//      acquires its two flags and computes those rows straight from
-//      ext_p, reading the received entries of both sides through L2
-//      (__ldcg).
-// The epoch is a counter of the caller's, one per call: a flag is never
-// reset, a receiver waits until its flag has reached the call's epoch
-// (a signed difference, so the count may wrap), and the receive buffers
-// are double-buffered by the epoch's parity, so that a sender one call
-// ahead cannot overwrite a halo still being read. Pointers that change
-// from call to call (v, vals, out) travel by value in the launch's
-// parameters; the receive buffers and flags are reached through device
-// tables of P pointers that the caller builds once, the tables that
-// would hold peer pointers once partitions live on distinct cards.
+// Design. The TPU kernel runs on chips that are truly apart: each sends
+// its boundary rows to its ring neighbours by RDMA, sweeps its own rows
+// while the copies fly, and waits on semaphores before its edge rows. On
+// one card every partition's segment already lies in device memory, and
+// the launch is ordered on its stream after whatever wrote them, so a
+// partition reads its neighbours' halos in place (a get where the TPU
+// kernel does a put): no copy, no flag, no wait, and a plain launch.
+//   - Rows: the blocks are split evenly over the partitions (the
+//     partition from the block index) and walk its rows with a grid
+//     stride, kRows consecutive rows a thread. Interior and edge rows are
+//     one pass: a row group whose stencil stays inside v_p reads it
+//     unchecked; one that reaches past an end reads ext_p[halo + j] as
+//     v_l[local_n + j] (j < 0), v_p[j] or v_r[j - local_n] (j >= local_n),
+//     so there is no edge tail. Where 2 halo > local_n the two ends overlap
+//     and every row is an edge row.
+//   - kRows = 4: float4 loads of the values and float4 stores of the
+//     output, where local_n and ld are multiples of 4 and every partition's
+//     values and output are 16-byte aligned (the C entry refuses a vector
+//     launch on anything else); kRows = 1: scalar, any shape. The D
+//     shifted reads of v stay scalar, through L1 (__ldg), as in K4: read
+//     as aligned float4 windows they took more registers, fewer resident
+//     blocks and more time. Two diagonals a loop iteration keep the
+//     vector path under 48 registers (5 blocks an SM).
+//   - Segments: `Rows` forms partition p's pointers as base + p local_n
+//     (one tensor each, the operator's path, nothing built per call);
+//     `Table` reads them from tables of P pointers passed by value as a
+//     __grid_constant__ parameter (one allocation per partition), indexed
+//     in the parameter space with no local copy. Those tables are where
+//     partitions on distinct cards would put peer pointers, with an event
+//     per card ordering the launch after each card's v.
 // Every sum is taken in K4's order (fmaf over k = 0 .. D - 1), so each
-// output equals K4's on the global vector.
+// output equals K4's on the global vector, bit for bit.
 #include <cuda_runtime.h>
 
-#include "cooperative.cuh"
+#include <cstdint>
+
 #include "dia_common.cuh"
 
 namespace {
 
-constexpr int kThreads = lat::kCoopThreads;
-constexpr int kMaxParts = 64;  // MAX_PARTITIONS of ops/native.py
+constexpr int kThreads = 256;
+constexpr int kVectorRows = 4;  // rows a thread on the vector path
+constexpr int kUnroll = 2;      // diagonals a loop iteration
+// __launch_bounds__'s resident blocks an SM: the scalar path fits 8 blocks
+// (2,048 threads) in 32 registers; the vector path takes what it needs.
+constexpr int kMinBlocksScalar = 8;
+constexpr int kMinBlocksVector = 1;
+constexpr int kMaxParts = 64;   // MAX_PARTITIONS of ops/native.py
 
-struct PartPtrs {
+// Partition p's segments as views of one tensor each (vals with row
+// stride ld): base + p local_n.
+struct Rows {
+  const float* v;
+  const float* vals;
+  float* out;
+  __device__ const float* v_of(int p, int local_n) const {
+    return v + static_cast<size_t>(p) * local_n;
+  }
+  __device__ const float* vals_of(int p, int local_n) const {
+    return vals + static_cast<size_t>(p) * local_n;
+  }
+  __device__ float* out_of(int p, int local_n) const { return out + static_cast<size_t>(p) * local_n; }
+};
+
+// Partition p's segments, each its own allocation.
+struct Table {
   const float* v[kMaxParts];
   const float* vals[kMaxParts];
   float* out[kMaxParts];
+  __device__ const float* v_of(int p, int) const { return v[p]; }
+  __device__ const float* vals_of(int p, int) const { return vals[p]; }
+  __device__ float* out_of(int p, int) const { return out[p]; }
 };
 
-__device__ inline unsigned load_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
+// kRows consecutive floats from p (16-byte aligned where kRows > 1).
+template <int kRows>
+__device__ inline void load_rows(const float* __restrict__ p, float (&f)[kRows]) {
+  if constexpr (kRows == 1) {
+    f[0] = __ldg(p);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kRows / 4; ++q) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p) + q);
+      f[4 * q] = t.x, f[4 * q + 1] = t.y, f[4 * q + 2] = t.z, f[4 * q + 3] = t.w;
+    }
+  }
 }
 
-__device__ inline void store_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+template <int kRows>
+__device__ inline void store_rows(float* __restrict__ p, const float (&f)[kRows]) {
+  if constexpr (kRows == 1) {
+    *p = f[0];
+  } else {
+#pragma unroll
+    for (int q = 0; q < kRows / 4; ++q)
+      reinterpret_cast<float4*>(p)[q] = make_float4(f[4 * q], f[4 * q + 1], f[4 * q + 2], f[4 * q + 3]);
+  }
 }
 
-__device__ inline bool reached(unsigned flag, unsigned epoch) {
-  return static_cast<int>(flag - epoch) >= 0;
-}
-
-// Receive buffer of a partition: [parity][side][halo] floats; side 0
-// holds the left neighbour's tail, side 1 the right neighbour's head.
-// Flags of a partition: [side] (set by the neighbour on that side).
-__global__ void __launch_bounds__(kThreads)
-    halo_dia_kernel(PartPtrs ptrs, float* const* recv, unsigned* const* flags, int parts,
-                    int local_n, long long ld, int halo, int num_diags,
-                    const int* __restrict__ offsets, unsigned epoch) {
+template <int kRows, class Segments>
+__global__ void __launch_bounds__(kThreads, kRows == 1 ? kMinBlocksScalar : kMinBlocksVector)
+    halo_dia_kernel(const __grid_constant__ Segments seg, int parts, int per_part, int local_n,
+                    long long ld, int halo, int num_diags, const int* __restrict__ offsets) {
   extern __shared__ int s_off[];
   lat::stage_offsets(offsets, num_diags, s_off);
-  const int per_part = gridDim.x / parts;
   const int p = blockIdx.x / per_part;
-  const int b = blockIdx.x % per_part;
-  const int left = (p + parts - 1) % parts;
-  const int right = (p + 1) % parts;
-  const size_t parity = epoch & 1u;
-  const float* __restrict__ v = ptrs.v[p];
-  const float* __restrict__ vals = ptrs.vals[p];
-  float* __restrict__ out = ptrs.out[p];
+  const int b = blockIdx.x - p * per_part;
+  const int left = p == 0 ? parts - 1 : p - 1;
+  const int right = p == parts - 1 ? 0 : p + 1;
+  const float* __restrict__ v = seg.v_of(p, local_n);
+  const float* __restrict__ v_left = seg.v_of(left, local_n);
+  const float* __restrict__ v_right = seg.v_of(right, local_n);
+  const float* __restrict__ vals = seg.vals_of(p, local_n);
+  float* __restrict__ out = seg.out_of(p, local_n);
 
-  // 1. Send: my tail to the right neighbour's left side, my head to the
-  // left neighbour's right side.
-  if (b == 0) {
-    float* to_right = recv[right] + (parity * 2 + 0) * halo;
-    float* to_left = recv[left] + (parity * 2 + 1) * halo;
-    for (int t = threadIdx.x; t < halo; t += blockDim.x) {
-      to_right[t] = v[local_n - halo + t];
-      to_left[t] = v[t];
+  const int stride = per_part * kThreads * kRows;
+  for (int i = (b * kThreads + threadIdx.x) * kRows; i < local_n; i += stride) {
+    // i + kRows <= local_n: kRows > 1 only where local_n % kRows == 0.
+    float acc[kRows], w[kRows], x[kRows];
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) acc[u] = 0.0f;
+    const float* row = vals + i;
+    if (i >= halo && i + kRows + halo <= local_n) {
+      // An interior group: its stencil stays inside v_p.
+#pragma unroll kUnroll
+      for (int k = 0; k < num_diags; ++k, row += ld) {
+        load_rows<kRows>(row, w);
+        const float* vk = v + i + s_off[k];
+#pragma unroll
+        for (int u = 0; u < kRows; ++u) acc[u] = fmaf(w[u], __ldg(vk + u), acc[u]);
+      }
+    } else {
+#pragma unroll kUnroll
+      for (int k = 0; k < num_diags; ++k, row += ld) {
+        load_rows<kRows>(row, w);
+        const int d = s_off[k];
+#pragma unroll
+        for (int u = 0; u < kRows; ++u) {
+          const int j = i + u + d;  // index into v_p; outside it, a neighbour's halo
+          x[u] = j < 0 ? __ldg(v_left + (local_n + j))
+                       : (j < local_n ? __ldg(v + j) : __ldg(v_right + (j - local_n)));
+        }
+#pragma unroll
+        for (int u = 0; u < kRows; ++u) acc[u] = fmaf(w[u], x[u], acc[u]);
+      }
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      __threadfence();
-      store_release(flags[right] + 0, epoch);
-      store_release(flags[left] + 1, epoch);
-    }
+    store_rows<kRows>(out + i, acc);
   }
+}
 
-  // 2. Interior sweep.
-  const int first = b * blockDim.x + threadIdx.x;
-  const int stride = per_part * blockDim.x;
-  for (int i = halo + first; i < local_n - halo; i += stride) {
-    float acc = 0.0f;
-    for (int k = 0; k < num_diags; ++k) {
-      acc = fmaf(vals[k * ld + i], v[i + s_off[k]], acc);
-    }
-    out[i] = acc;
-  }
+inline bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
-  // 3. Edge fix-up: edge e < halo is row e, edge e >= halo is row
-  // local_n - edges + e (every row once where 2 halo > local_n). A block
-  // waits only if it owns an edge row.
-  const int edges = 2 * halo < local_n ? 2 * halo : local_n;
-  if (b * blockDim.x >= edges) return;
-  if (threadIdx.x == 0) {
-    while (!reached(load_acquire(flags[p] + 0), epoch)) __nanosleep(32);
-    while (!reached(load_acquire(flags[p] + 1), epoch)) __nanosleep(32);
-  }
-  __syncthreads();
-  const float* from_left = recv[p] + (parity * 2 + 0) * halo;
-  const float* from_right = recv[p] + (parity * 2 + 1) * halo;
-  for (int e = first; e < edges; e += stride) {
-    const int i = e < halo ? e : local_n - edges + e;
-    float acc = 0.0f;
-    for (int k = 0; k < num_diags; ++k) {
-      const int j = i + s_off[k];  // index into v_p; outside it, a halo
-      const float x = j < 0 ? __ldcg(from_left + halo + j)
-                            : (j < local_n ? v[j] : __ldcg(from_right + (j - local_n)));
-      acc = fmaf(vals[k * ld + i], x, acc);
-    }
-    out[i] = acc;
-  }
+template <int kRows, class Segments>
+cudaError_t launch(const Segments& seg, int parts, int local_n, int ld, int halo, int num_diags,
+                   const int* offsets, int max_blocks, cudaStream_t stream) {
+  auto kernel = &halo_dia_kernel<kRows, Segments>;
+  const size_t smem = lat::offsets_bytes(num_diags);
+  const cudaError_t err = lat::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int need = (local_n + kThreads * kRows - 1) / (kThreads * kRows);
+  const int per_part = need < max_blocks ? need : max_blocks;
+  kernel<<<per_part * parts, kThreads, smem, stream>>>(seg, parts, per_part, local_n, ld, halo,
+                                                       num_diags, offsets);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// v, vals, out: host arrays of `parts` device pointers, partition p's
-// v_p (local_n,), vals_p (num_diags rows of local_n, row stride ld >=
-// local_n) and out_p (local_n,); float32. recv, flags: device tables of
-// `parts` pointers to each partition's receive buffer (2 x 2 x halo
-// floats) and its two flags (zero before the first call). offsets_host:
-// host array of num_diags signed offsets, |d_k| <= halo <= local_n;
-// offsets: the same on the device. epoch: the call's
-// count, never the previous call's. Returns the launch's CUDA error code
-// (cudaErrorInvalidValue for a shape the kernel does not take, without
-// launching; cudaErrorCooperativeLaunchTooLarge when the card cannot hold
-// one block per partition).
-extern "C" int lat_halo_dia_matvec(const float* const* v, const float* const* vals,
-                                   float* const* out, float* const* recv,
-                                   unsigned* const* flags, int parts, int local_n, int ld,
-                                   int halo, int num_diags, const int* offsets_host,
-                                   const int* offsets, unsigned epoch, void* stream) {
+// table = 0: v, vals, out are the device pointers of the global tensors
+// v (parts local_n,), vals (num_diags rows of parts local_n, row stride
+// ld) and out (parts local_n,); partition p's segments begin at
+// p local_n. table = 1: v, vals, out are host arrays of `parts` device
+// pointers, partition p's v_p (local_n,), vals_p (num_diags rows of
+// local_n, row stride ld >= local_n) and out_p (local_n,). float32.
+// offsets_host: host array of num_diags signed offsets, |d_k| <= halo <=
+// local_n; offsets: the same on the device. rows: rows a thread, 4 (the
+// vector path: local_n and ld multiples of 4, every partition's values
+// and output 16-byte aligned) or 1. max_blocks: blocks a partition at
+// most (the launch plan's; a grid-stride loop covers the rest). Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue, without
+// launching, for a shape or a plan the kernel does not take).
+extern "C" int lat_halo_dia_matvec(const void* v, const void* vals, void* out, int table,
+                                   int parts, int local_n, int ld, int halo, int num_diags,
+                                   const int* offsets_host, const int* offsets, int rows,
+                                   int max_blocks, void* stream) {
   const long long n = static_cast<long long>(parts) * local_n;
   if (parts < 1 || parts > kMaxParts || local_n < 1 || n > (1 << 30) || halo < 1 ||
-      halo > local_n || ld < local_n || num_diags < 1)
+      halo > local_n || ld < (table ? local_n : n) || num_diags < 1 || max_blocks < 1 ||
+      (rows != 1 && rows != kVectorRows))
     return cudaErrorInvalidValue;
   for (int k = 0; k < num_diags; ++k) {
     if (offsets_host[k] > halo || offsets_host[k] < -halo) return cudaErrorInvalidValue;
   }
-  const size_t smem = lat::offsets_bytes(num_diags);
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess) err = lat::allow_smem(halo_dia_kernel, smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, halo_dia_kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  const int need = (local_n + kThreads - 1) / kThreads;
-  const int room = per_sm * sms / parts;
-  const int per_part = room < need ? room : need;
-  if (per_part < 1) return cudaErrorCooperativeLaunchTooLarge;
-  PartPtrs ptrs{};
-  for (int p = 0; p < parts; ++p) {
-    ptrs.v[p] = v[p];
-    ptrs.vals[p] = vals[p];
-    ptrs.out[p] = out[p];
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (!table) {
+    const Rows seg{static_cast<const float*>(v), static_cast<const float*>(vals),
+                   static_cast<float*>(out)};
+    if (rows == 1) return launch<1>(seg, parts, local_n, ld, halo, num_diags, offsets, max_blocks, s);
+    if (local_n % kVectorRows || ld % 4 || !aligned16(seg.vals) || !aligned16(seg.out))
+      return cudaErrorInvalidValue;
+    return launch<kVectorRows>(seg, parts, local_n, ld, halo, num_diags, offsets, max_blocks, s);
   }
-  long long ld_wide = ld;
-  void* args[] = {&ptrs, &recv, &flags, &parts, &local_n, &ld_wide,
-                  &halo, &num_diags, &offsets, &epoch};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(halo_dia_kernel),
-                                    dim3(per_part * parts), dim3(kThreads), args, smem,
-                                    static_cast<cudaStream_t>(stream));
-  return err != cudaSuccess ? err : cudaGetLastError();
+  Table seg{};
+  for (int p = 0; p < parts; ++p) {
+    seg.v[p] = static_cast<const float* const*>(v)[p];
+    seg.vals[p] = static_cast<const float* const*>(vals)[p];
+    seg.out[p] = static_cast<float* const*>(out)[p];
+  }
+  if (rows == 1) return launch<1>(seg, parts, local_n, ld, halo, num_diags, offsets, max_blocks, s);
+  if (local_n % kVectorRows || ld % 4) return cudaErrorInvalidValue;
+  for (int p = 0; p < parts; ++p) {
+    if (!aligned16(seg.vals[p]) || !aligned16(seg.out[p])) return cudaErrorInvalidValue;
+  }
+  return launch<kVectorRows>(seg, parts, local_n, ld, halo, num_diags, offsets, max_blocks, s);
 }

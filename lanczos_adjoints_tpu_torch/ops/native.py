@@ -72,9 +72,7 @@ _SIGNATURES = {
     "device": {"lat_device_limits": (_P, _P)},
     "bsr": {"lat_bsr_spmv": (_P, _P, _P, _P, _P, _I, _I, _P)},
     "halo_dia": {
-        "lat_halo_dia_matvec": (
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, ctypes.c_uint, _P,
-        ),
+        "lat_halo_dia_matvec": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P),
     },
 }
 

@@ -18,17 +18,22 @@ v[(i + d_k) mod n]`` on the whole vector, for any values.
 - ``halo_dia_rows`` (global tensors) and ``halo_dia_parts`` (one tensor
   per partition) launch K11 (``csrc/halo_dia.cu``
   ``lat_halo_dia_matvec``) for CUDA tensors and run the plain version for
-  CPU tensors; there is no other path. K11 sends, sweeps, waits and fixes
-  up the edges of every partition in one launch; ``HaloExchange`` holds
-  the receive buffers, flags and epoch count it needs.
+  CPU tensors; there is no other path. K11 computes every partition's
+  rows in one plain launch, each partition reading its neighbours'
+  halos where they lie: nothing is sent, flagged or waited on.
+  ``halo_plan`` (made once for each operator and card) picks 4 rows a
+  thread with float4 loads where the local rows allow it; a launch whose
+  values or output are not 16-byte aligned takes 1 row a thread.
 - ``sharded_dia_operator_fused`` wraps them in an autograd Function with
   the JAX Pallas operator's symmetric VJP: ``dv`` is K11 on the
   cotangent, ``dvals[k, i] = u[i] ext[halo + d_k + i]`` is PyTorch ops,
   as the JAX package leaves it to XLA.
 """
 
+import contextlib
 import ctypes
-import math
+import dataclasses
+import functools
 
 import torch
 
@@ -67,10 +72,15 @@ def _extended(v, n_partitions, halo):
 # ---------------------------------------------------------------------------
 
 
-def halo_dia_plain(offsets, v, vals, n_partitions: int):
+def halo_dia_plain(offsets, v, vals, n_partitions: int, *, fused: bool = False):
     """Plain K11: ``v (n,)``, ``vals (D, n)`` -> ``(n,)``, any dtype.
 
     ``halo`` may reach ``local_n``, as in the JAX ``ppermute`` operator.
+    The terms are summed in K4's order; each product and sum are rounded
+    apart, as ``fused_dia.dia_matvec_plain`` rounds them, or with
+    ``fused`` each term is added by ``torch.addcmul``, which rounds once
+    where the device fuses the multiply and the add, as K4's and K11's
+    ``fmaf`` does.
     """
     n = v.shape[0]
     halo = halo_width(offsets)
@@ -79,7 +89,8 @@ def halo_dia_plain(offsets, v, vals, n_partitions: int):
     out = torch.zeros((n_partitions, local_n), dtype=v.dtype, device=v.device)
     for k, d in enumerate(offsets):
         start = halo + d
-        out = out + vals[k].reshape(n_partitions, local_n) * ext[:, start : start + local_n]
+        w, x = vals[k].reshape(n_partitions, local_n), ext[:, start : start + local_n]
+        out = torch.addcmul(out, w, x) if fused else out + w * x
     return out.reshape(n)
 
 
@@ -95,75 +106,98 @@ def halo_dvals_plain(offsets, v, u, n_partitions: int):
 
 
 # ---------------------------------------------------------------------------
-# The kernel's state and wrappers
+# The launch plan and the wrappers
 # ---------------------------------------------------------------------------
 
-
-class HaloExchange:
-    """Receive buffers, flags and the epoch count of one ring of partitions.
-
-    Each partition owns its buffers: ``recv[p]`` ``(2, 2, halo)`` (epoch
-    parity x side x entries; NaN until a neighbour writes them) and
-    ``flags[p]`` ``(2,)`` (one per side, never reset). K11 reaches them
-    through device tables of P pointers, built once per device. Every
-    launch takes the next epoch.
-    """
-
-    def __init__(self, n_partitions: int, halo: int):
-        if not 0 < n_partitions <= native.MAX_PARTITIONS:
-            msg = f"{n_partitions} partitions; the halo kernel takes 1 to {native.MAX_PARTITIONS}"
-            raise ValueError(msg)
-        self.n_partitions = n_partitions
-        self.halo = halo
-        self.epoch = 0
-        self._on = {}
-
-    def buffers(self, device):
-        """``(recv, flags, recv_table, flag_table)`` on ``device``, made at first use."""
-        device = torch.device(device)
-        if device not in self._on:
-            recv = [torch.full((2, 2, self.halo), math.nan, device=device)
-                    for _ in range(self.n_partitions)]
-            flags = [torch.zeros(2, dtype=torch.int32, device=device)
-                     for _ in range(self.n_partitions)]
-            tables = [torch.tensor([t.data_ptr() for t in ts], dtype=torch.int64, device=device)
-                      for ts in (recv, flags)]
-            self._on[device] = (recv, flags, *tables)
-        return self._on[device]
-
-    def next_epoch(self) -> int:
-        self.epoch = (self.epoch + 1) % 2**32
-        return self.epoch
+VECTOR_ROWS = 4  # rows a thread on the vector path (float4 values and output)
+BLOCKS_PER_SM = 8  # 2,048 resident threads an SM in blocks of 256 (kThreads of csrc/halo_dia.cu)
+# K11's launches by rows a thread (both kernels), for a run to show which
+# path its launches took.
+LAUNCHES_BY_ROWS = {1: 0, VECTOR_ROWS: 0}
 
 
-def _pointers(tensors):
-    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
-
-
-def _check_ring(offsets, n: int, exchange: HaloExchange) -> int:
-    """``local_n``; raises on what K11 does not take."""
+def check_ring(offsets, n: int, n_partitions: int) -> int:
+    """``local_n``; raises ``ValueError`` on what K11 does not take."""
     if not offsets:
         raise ValueError("a DIA operator needs at least one diagonal")
-    if n % exchange.n_partitions != 0:
-        msg = f"n={n} must divide evenly over {exchange.n_partitions} partitions"
+    if not 0 < n_partitions <= native.MAX_PARTITIONS:
+        msg = f"{n_partitions} partitions; the halo kernel takes 1 to {native.MAX_PARTITIONS}"
         raise ValueError(msg)
-    local_n, halo = n // exchange.n_partitions, halo_width(offsets)
-    if halo != exchange.halo:
-        msg = f"halo {halo} of the offsets, {exchange.halo} of the exchange"
+    if n % n_partitions != 0:
+        msg = f"n={n} must divide evenly over {n_partitions} partitions"
         raise ValueError(msg)
+    local_n, halo = n // n_partitions, halo_width(offsets)
     if halo > local_n:
         msg = f"halo {halo} exceeds local rows {local_n}"
         raise ValueError(msg)
     return local_n
 
 
-def halo_dia_parts(offsets, v_parts, vals_parts, exchange: HaloExchange):
+@dataclasses.dataclass(frozen=True)
+class HaloPlan:
+    """K11's launch for one operator on one card (``halo_plan``).
+
+    ``vector``: 4 rows a thread, with float4 loads of the values and
+    float4 stores of the output, where ``local_n % 4 == 0`` (each launch
+    then also needs the pointers aligned: ``rows``); else 1 row a thread.
+    ``max_blocks``: blocks a partition at most, one wave of the card's
+    ``BLOCKS_PER_SM`` blocks an SM split over the partitions; the
+    kernel's grid-stride loop covers what they do not. The vector path
+    needs fewer blocks than that at n = 2^20 (1,024 over all partitions);
+    the scalar path (28 registers, 8 blocks an SM) runs as one wave.
+    """
+
+    n_partitions: int
+    local_n: int
+    halo: int
+    vector: bool
+    max_blocks: int
+
+    def rows(self, ld: int, *pointers: int) -> int:
+        """Rows a thread for one launch: ``VECTOR_ROWS`` on the vector path
+        where the values' row stride ``ld`` is a multiple of 4 and every
+        pointer the kernel reads or writes by float4 (each partition's
+        values and output) is 16-byte aligned, else 1."""
+        aligned = ld % VECTOR_ROWS == 0 and all(p % 16 == 0 for p in pointers)
+        return VECTOR_ROWS if self.vector and aligned else 1
+
+
+def halo_plan(offsets, n: int, n_partitions: int, sms: int) -> HaloPlan:
+    """K11's plan for ``n`` rows over ``n_partitions`` on a card of ``sms``
+    SMs; raises ``ValueError`` where ``check_ring`` does."""
+    local_n = check_ring(offsets, n, n_partitions)
+    return HaloPlan(n_partitions=n_partitions, local_n=local_n, halo=halo_width(offsets),
+                    vector=local_n % VECTOR_ROWS == 0,
+                    max_blocks=max(1, BLOCKS_PER_SM * sms // n_partitions))
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_args(offsets, n, n_partitions, device):
+    """``(plan, host offsets, device offsets)``, made once for each operator
+    and device."""
+    plan = halo_plan(offsets, n, n_partitions, native.device_limits(device)[0])
+    return plan, (ctypes.c_int * len(offsets))(*offsets), native.offsets_arg(offsets, None, device)
+
+
+def _device(device):
+    """``torch.cuda.device(device)`` where it is not the current device already."""
+    return contextlib.nullcontext() if device.index == torch.cuda.current_device() else torch.cuda.device(device)
+
+
+def _stream(device) -> int:
+    """PyTorch's current stream on ``device``: ``native.stream``'s handle,
+    read without building a ``torch.cuda.Stream`` (0.2 against 3-6 us a
+    call on the card's host, ``k11_host``)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def halo_dia_parts(offsets, v_parts, vals_parts):
     """K11 on one tensor per partition: ``v_parts[p] (local_n,)``,
     ``vals_parts[p] (D, local_n)`` (rows contiguous, one row stride for
     all) -> ``out_parts``, a list of ``(local_n,)`` tensors."""
     n_partitions = len(v_parts)
-    if len(vals_parts) != n_partitions or n_partitions != exchange.n_partitions:
-        msg = f"{len(v_parts)} segments, {len(vals_parts)} value blocks, a ring of {exchange.n_partitions}"
+    if len(vals_parts) != n_partitions:
+        msg = f"{len(v_parts)} segments, {len(vals_parts)} value blocks"
         raise ValueError(msg)
     device = fused_dia.check_operands(*v_parts, *(w[0] for w in vals_parts))
     local_n = v_parts[0].shape[0]
@@ -171,7 +205,7 @@ def halo_dia_parts(offsets, v_parts, vals_parts, exchange: HaloExchange):
         if v_p.shape != (local_n,) or w.shape != (len(offsets), local_n):
             msg = f"shape mismatch: v {tuple(v_p.shape)}, vals {tuple(w.shape)}, {len(offsets)} offsets"
             raise ValueError(msg)
-    _check_ring(offsets, local_n * n_partitions, exchange)
+    check_ring(offsets, local_n * n_partitions, n_partitions)
     if device.type == "cpu":
         out = halo_dia_plain(offsets, torch.cat(v_parts), torch.cat(vals_parts, dim=1), n_partitions)
         return list(out.reshape(n_partitions, local_n))
@@ -179,40 +213,44 @@ def halo_dia_parts(offsets, v_parts, vals_parts, exchange: HaloExchange):
     if any(w.stride() != (ld, 1) for w in vals_parts):
         raise ValueError("the value blocks must share one row stride and have contiguous rows")
     out_parts = [torch.empty_like(v_p) for v_p in v_parts]
-    _launch(HALO_DIA, offsets, v_parts, vals_parts, out_parts, exchange, local_n, ld, device)
+    offsets = tuple(int(d) for d in offsets)
+    plan, offsets_host, offsets_dev = _launch_args(offsets, local_n * n_partitions, n_partitions, device)
+    tables = [_pointers(ts) for ts in (v_parts, vals_parts, out_parts)]
+    rows = plan.rows(ld, *tables[1], *tables[2])
+    with _device(device):
+        HALO_DIA.launch(*tables, 1, n_partitions, local_n, ld, plan.halo, len(offsets), offsets_host,
+                        offsets_dev.data_ptr(), rows, plan.max_blocks, _stream(device))
+    LAUNCHES_BY_ROWS[rows] += 1
     return out_parts
 
 
-def _launch(kernel, offsets, v_parts, vals_parts, out_parts, exchange, local_n, ld, device):
-    _recv, _flags, recv_table, flag_table = exchange.buffers(device)
-    with torch.cuda.device(device):
-        kernel.launch(
-            _pointers(v_parts), _pointers(vals_parts), _pointers(out_parts),
-            recv_table.data_ptr(), flag_table.data_ptr(), exchange.n_partitions, local_n, ld,
-            exchange.halo, len(offsets), (ctypes.c_int * len(offsets))(*offsets),
-            native.offsets_arg(offsets, None, device).data_ptr(), exchange.next_epoch(),
-            native.stream(device),
-        )
+def _pointers(tensors):
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def halo_dia_rows(offsets, v, vals, exchange: HaloExchange, *, kernel=HALO_DIA):
+def halo_dia_rows(offsets, v, vals, n_partitions: int, *, kernel=HALO_DIA):
     """K11 on global tensors: ``v (n,)``, ``vals (D, n)`` -> ``(n,)``.
 
-    Partition p's segment, value columns and output are views of rows
-    ``[p local_n, (p + 1) local_n)``; the output is one tensor.
+    Partition p's segment, value columns and output are rows
+    ``[p local_n, (p + 1) local_n)`` of the tensors, which the kernel
+    finds from their base pointers; the output is one tensor.
     """
     device = fused_dia.check_operands(v, vals)
-    n, n_partitions = v.shape[0], exchange.n_partitions
+    n = v.shape[0]
     if v.ndim != 1 or vals.shape != (len(offsets), n):
         msg = f"shape mismatch: v {tuple(v.shape)}, vals {tuple(vals.shape)}, {len(offsets)} offsets"
         raise ValueError(msg)
-    local_n = _check_ring(offsets, n, exchange)
     if device.type == "cpu":
+        check_ring(offsets, n, n_partitions)
         return halo_dia_plain(offsets, v, vals, n_partitions)
+    plan, offsets_host, offsets_dev = _launch_args(tuple(offsets), n, n_partitions, device)
     out = torch.empty_like(v)
-    cut = [slice(p * local_n, (p + 1) * local_n) for p in range(n_partitions)]
-    _launch(kernel, offsets, [v[s] for s in cut], [vals[:, s] for s in cut],
-            [out[s] for s in cut], exchange, local_n, n, device)
+    vals_ptr, out_ptr = vals.data_ptr(), out.data_ptr()
+    rows = plan.rows(n, vals_ptr, out_ptr)
+    with _device(device):
+        kernel.launch(v.data_ptr(), vals_ptr, out_ptr, 0, n_partitions, plan.local_n, n, plan.halo,
+                      len(offsets), offsets_host, offsets_dev.data_ptr(), rows, plan.max_blocks, _stream(device))
+    LAUNCHES_BY_ROWS[rows] += 1
     return out
 
 
@@ -223,25 +261,25 @@ def halo_dia_rows(offsets, v, vals, exchange: HaloExchange, *, kernel=HALO_DIA):
 
 class _HaloDiaMatvec(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, offsets, exchange, symmetric, v, vals):
-        ctx.offsets, ctx.exchange, ctx.symmetric = offsets, exchange, symmetric
+    def forward(ctx, offsets, n_partitions, symmetric, v, vals):
+        ctx.offsets, ctx.n_partitions, ctx.symmetric = offsets, n_partitions, symmetric
         ctx.save_for_backward(v, vals)
-        return halo_dia_rows(offsets, v.contiguous(), vals.contiguous(), exchange)
+        return halo_dia_rows(offsets, v.contiguous(), vals.contiguous(), n_partitions)
 
     @staticmethod
     def backward(ctx, u):
         v, vals = ctx.saved_tensors
-        offsets, exchange = ctx.offsets, ctx.exchange
+        offsets, n_partitions = ctx.offsets, ctx.n_partitions
         u = u.contiguous()
         dv = dvals = None
         if ctx.needs_input_grad[3]:
             if ctx.symmetric:
-                dv = halo_dia_rows(offsets, u, vals.contiguous(), exchange)
+                dv = halo_dia_rows(offsets, u, vals.contiguous(), n_partitions)
             else:
                 neg_offsets, vals_t = fused_dia.transposed(offsets, vals)
-                dv = halo_dia_rows(neg_offsets, u, vals_t, exchange, kernel=HALO_DIA_T)
+                dv = halo_dia_rows(neg_offsets, u, vals_t, n_partitions, kernel=HALO_DIA_T)
         if ctx.needs_input_grad[4]:
-            dvals = halo_dvals_plain(offsets, v, u, exchange.n_partitions)
+            dvals = halo_dvals_plain(offsets, v, u, n_partitions)
         return None, None, None, dv, dvals
 
 
@@ -273,10 +311,9 @@ def sharded_dia_operator_fused(dia, mesh, *, axis: str = "rows", check_tiling: b
         if rows < 2 * hr:
             msg = f"halo rows {hr} need local rows >= {2 * hr}, got {rows}"
             raise ValueError(msg)
-    exchange = HaloExchange(n_partitions, halo_width(offsets))
-    _check_ring(offsets, n, exchange)
+    check_ring(offsets, n, n_partitions)
 
     def matvec(v, vals):
-        return _HaloDiaMatvec.apply(offsets, exchange, symmetric, v, vals)
+        return _HaloDiaMatvec.apply(offsets, n_partitions, symmetric, v, vals)
 
     return matvec

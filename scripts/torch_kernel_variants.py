@@ -1,8 +1,8 @@
-"""Time design variants of the port's K1, K2, K3, K6, K7, K9 and K10 kernels side by side on one GPU.
+"""Time design variants of the port's K1, K2, K3, K6, K7, K9, K10 and K11 kernels side by side on one GPU.
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc:
-``python3 scripts/torch_kernel_variants.py [--only k1,k2,k3,k6,k7,k9,k10] [--parent DIR]``
-(all seven kernels unless ``--only`` names some). Each variant is the
+``python3 scripts/torch_kernel_variants.py [--only k1,k2,k3,k6,k7,k9,k10,k11] [--parent DIR]``
+(all eight kernels unless ``--only`` names some). Each variant is the
 kernel's source under ``lanczos_adjoints_tpu_torch/csrc/`` with one
 constant replaced, compiled into its own library in a temporary
 directory; the package's own build is left alone. It prints each
@@ -54,7 +54,19 @@ variant's register count and time beside the chosen one's:
   Laplacian at n = 1,048,576, 1,000,000 and 16,384 (K = 90) and at
   n = 2^20 on the 2-D 9-point stencil, the 3-D 27-point stencil and 65
   diagonals, CUDA events, each result held to the plain version; with the
-  registers, stack and spill bytes of its four instantiations.
+  registers, stack and spill bytes of its four instantiations;
+- K11 (``halo_dia.cu``): the kernel (4 rows a thread, two diagonals a
+  loop iteration) and its variants (one or four diagonals an iteration,
+  the vector path in 40 registers, the scalar path without its register
+  cap, 8 rows a thread, the offsets read through L1 instead of staged) on
+  the plan's grid and on one and two waves of 5 blocks an SM, and 1 row a
+  thread on four grids, at the slice's operator (n = 2^20, D = 5, halo
+  1,024) over P = 1, 2, 4, 8 partitions, beside K4 and a PyTorch column
+  sum of the values on the same 8 rotating operand sets, device time from
+  the profiler and events, each result bit for bit against K4; the
+  registers, stack and spill bytes of every build's four instantiations;
+  and the host's microseconds a call in the wrapper's parts
+  (``k11_host``), with ``--parent`` the parent's parts beside them.
 
 ``--breakdown`` times K2 at m = 225 and K3 at m = 1 and 225 instead of
 their variants, with parts of their work cut out (K3's moments; the
@@ -65,7 +77,10 @@ K7 at n = 2^20, D = 5, K = 90: the parent tree's kernel (with
 ``--parent``) as it is, without its dvals read-modify-write, without the
 sums of the per-block partials after its grid barriers and without the
 values' reads, and this tree's without the dvals update and without the
-values' reads.
+values' reads; and the parent tree's K11 (``--parent`` needed) at P = 1
+and 8 with a plain launch and no wait, without its edge fix-up, without
+its send copies, without its ``PartPtrs`` index, and its interior sweep
+alone, each build's registers, stack and spill beside this tree's.
 
 ``--parent DIR`` (a checkout of an earlier commit, e.g. unpacked by
 ``git archive``) also builds that commit's ``gram_matvec.cu``,
@@ -81,6 +96,11 @@ run with each tree's own code in a process of its own. The parent's K7
 65 diagonals (more than it takes), parent, this, this, parent, by the profiler's device time and
 CUDA events; with DIR a whole checkout the fused Lanczos VJP at 1024^2,
 1000^2 and 128^2 runs with each tree's own code in a process of its own.
+The parent's K11 (its cooperative launch, receive buffers and flags) runs
+at P = 1, 2, 4, 8, parent, this, this, parent; with DIR a whole checkout
+each tree's K11 wrapper (host microseconds a call) and the sharded
+Lanczos VJP at n = 2^20, K = 30, P = 1, 2, 4, 8 run in a process of
+their own.
 """
 
 import argparse
@@ -1321,6 +1341,346 @@ def k6_breakdown(tmp):
                   f"{ms:.4f} ms by events ({clocks})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# K11: the halo-exchange DIA matvec
+# ---------------------------------------------------------------------------
+
+# The slice's operator (test_util.five_diagonal(2^20, 1024), chip_smoke's
+# HALO_*) over these partition counts.
+K11_PARTITIONS = (1, 2, 4, 8)
+K11_REPS = 48
+
+
+def _k11_data():
+    """``(offsets, [(v, vals)] x ROTATE_SETS)``: the slice's operator, a new
+    seeded v and a copy of the values in each set, so that L2 does not hold
+    one set's operands for its next use."""
+    from lanczos_adjoints_tpu_torch.ops import sparse
+    from lanczos_adjoints_tpu_torch.utils import test_util
+
+    rng = __import__("numpy").random.default_rng(14)
+    mat = test_util.five_diagonal(cs.HALO_N, cs.HALO_BANDWIDTH)
+    dia = sparse.dia_pack(mat)
+    vals = sparse.dia_values(dia, mat.data, device="cuda")
+    return dia.offsets, [(cs._tensor(rng, cs.HALO_N), vals.clone()) for _ in range(cs.ROTATE_SETS)]
+
+
+class _ParentK11:
+    """The parent's ``lat_halo_dia_matvec`` (a cooperative launch; receive
+    buffers, flags and an epoch a call) on views of global tensors, as
+    its wrapper launched it; ``parts`` splits the wrapper's host work."""
+
+    def __init__(self, lib, offsets, parts, n):
+        from lanczos_adjoints_tpu_torch.parallel import fused_halo as fh
+
+        self.fn = lib.lat_halo_dia_matvec
+        self.fn.argtypes = [_P] * 5 + [_I] * 5 + [_P, _P, ctypes.c_uint, _P]
+        self.offsets, self.parts, self.n = tuple(offsets), parts, n
+        self.halo, self.local_n = fh.halo_width(offsets), n // parts
+        self.recv = [torch.full((2, 2, self.halo), float("nan"), device="cuda") for _ in range(parts)]
+        self.flags = [torch.zeros(2, dtype=torch.int32, device="cuda") for _ in range(parts)]
+        self.tables = [torch.tensor([t.data_ptr() for t in ts], dtype=torch.int64, device="cuda")
+                       for ts in (self.recv, self.flags)]
+        self.offs = native.offsets_arg(offsets, None, "cuda")
+        self.epoch = 0
+
+    def views(self, v, vals, out):
+        cut = [slice(p * self.local_n, (p + 1) * self.local_n) for p in range(self.parts)]
+        return [v[s] for s in cut], [vals[:, s] for s in cut], [out[s] for s in cut]
+
+    def arrays(self, v_parts, vals_parts, out_parts):
+        ptrs = [(ctypes.c_void_p * self.parts)(*(t.data_ptr() for t in ts)) for ts in (v_parts, vals_parts, out_parts)]
+        return ptrs, (ctypes.c_int * len(self.offsets))(*self.offsets)
+
+    def call(self, ptrs, host_offsets):
+        self.epoch = (self.epoch + 1) % 2**32
+        native.check(self.fn(*ptrs, self.tables[0].data_ptr(), self.tables[1].data_ptr(), self.parts,
+                             self.local_n, self.n, self.halo, len(self.offsets), host_offsets, self.offs.data_ptr(),
+                             self.epoch, torch.cuda.current_stream().cuda_stream), "parent K11")
+
+    def __call__(self, v, vals):
+        out = torch.empty_like(v)
+        with torch.cuda.device(v.device):
+            self.call(*self.arrays(*self.views(v, vals, out)))
+        return out
+
+
+def _k11_line(label, runs, want, symbol="halo_dia_kernel"):
+    """Time ``runs`` (one closure an operand set) in rotation: device us a
+    launch by the profiler and by events; each set's result bit for bit
+    against ``want``."""
+    exact = all(torch.equal(run(), w) for run, w in zip(runs, want))
+    device, ms, clocks = _timed(cs._rotating(runs), K11_REPS, symbol)
+    return f"{label} {_dev(1e3 * device if device is not None else None)} us on the device, " \
+           f"{1e3 * ms:.2f} us by events, bit for bit vs K4 {exact} ({clocks})"
+
+
+def k11_parent(tmp, parent):
+    """K11 at n = 2^20, D = 5, halo 1,024, P = 1, 2, 4, 8: the parent's
+    kernel and this tree's wrapper, parent, this, this, parent."""
+    from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
+    from lanczos_adjoints_tpu_torch.parallel import fused_halo as fh
+
+    lib = build_parent(parent, "halo_dia.cu", tmp / "parent_k11")
+    offsets, sets = _k11_data()
+    want = [fd.dia_matvec_rows(offsets, v, vals) for v, vals in sets]
+    for parts in K11_PARTITIONS:
+        old = _ParentK11(lib, offsets, parts, cs.HALO_N)
+        runs = {"parent": [lambda v=v, vals=vals: old(v, vals) for v, vals in sets],
+                "this": [lambda v=v, vals=vals, p=parts: fh.halo_dia_rows(offsets, v, vals, p) for v, vals in sets]}
+        print(f"K11 P={parts}: " + "; ".join(_k11_line(label, runs[label], want)
+                                            for label in ("parent", "this", "this", "parent")), flush=True)
+
+
+# K11's design variants: its source with constants replaced.
+_K11_VARIANTS = {
+    "the kernel": [],
+    "1 diagonal a loop iteration": [("constexpr int kUnroll = 2;", "constexpr int kUnroll = 1;")],
+    "4 diagonals a loop iteration": [("constexpr int kUnroll = 2;", "constexpr int kUnroll = 4;")],
+    "the vector path in at most 40 registers (6 blocks an SM)": [
+        ("constexpr int kMinBlocksVector = 1;", "constexpr int kMinBlocksVector = 6;")],
+    "the scalar path without a register cap": [
+        ("constexpr int kMinBlocksScalar = 8;", "constexpr int kMinBlocksScalar = 1;")],
+    "8 rows a thread": [("constexpr int kVectorRows = 4;", "constexpr int kVectorRows = 8;")],
+    "offsets read through L1, not staged": [("  lat::stage_offsets(offsets, num_diags, s_off);\n", ""),
+                                            ("s_off[k]", "__ldg(offsets + k)")],
+}
+# Grids: the plan's, and 5 and 10 blocks an SM over all partitions (one
+# and two waves of the vector path's resident blocks).
+_K11_GRIDS = (None, 5, 10)
+
+
+def k11_variants(tmp):
+    """This tree's K11 at n = 2^20, D = 5, halo 1,024, P = 1, 2, 4, 8: each
+    design variant (``_K11_VARIANTS``) on the plan's grid and on grids of
+    5 and 10 blocks an SM over all partitions, and the kernel with 1 row a
+    thread (the plan's grid, 8, 16 and 32 blocks an SM), beside K4 on the
+    same operand sets and a PyTorch column sum of the values (as many
+    bytes); the registers, stack and spill of each build."""
+    from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
+
+    built = build_parallel({label: (edited_source("halo_dia.cu", edits, tmp / f"k11_{i}"), tmp / f"k11_{i}")
+                            for i, (label, edits) in enumerate(_K11_VARIANTS.items())})
+    for label, (_lib, report) in built.items():
+        _print_k11_ptxas(label, report)
+    offsets, sets = _k11_data()
+    want = [fd.dia_matvec_rows(offsets, v, vals) for v, vals in sets]
+    k4 = [lambda v=v, vals=vals: fd.dia_matvec_rows(offsets, v, vals) for v, vals in sets]
+    sms = native.device_limits("cuda")[0]
+    # A yardstick of the card's rate on as many bytes: PyTorch's sum of the
+    # values' D rows (D n floats read, n written; not K11's function).
+    sums = [lambda vals=vals: vals.sum(0) for _v, vals in sets]
+    device, ms, clocks = _timed(cs._rotating(sums), K11_REPS, "reduce")
+    print(f"K11 yardstick: the values' column sum (PyTorch) {_dev(1e3 * device if device is not None else None)} us "
+          f"on the device, {1e3 * ms:.2f} us by events ({clocks})", flush=True)
+    for parts in K11_PARTITIONS:
+        print(f"K11 P={parts}: " + _k11_line("K4 on the whole vector", k4, want, "dia_matvec_kernel"), flush=True)
+        for label, (lib, _report) in built.items():
+            rows = 8 if label == "8 rows a thread" else 4
+            grids = _K11_GRIDS if label != "8 rows a thread" else (None,)
+            lines = [_k11_line(f"grid {'the plan' if g is None else f'{g} an SM'}",
+                               [_k11_direct(offsets, v, vals, parts, rows, g and max(1, g * sms // parts), lib)
+                                for v, vals in sets], want) for g in grids]
+            print(f"K11 P={parts} {label}: " + "; ".join(lines), flush=True)
+        lines = [_k11_line(f"grid {'the plan' if g is None else f'{g} an SM'}",
+                           [_k11_direct(offsets, v, vals, parts, 1, g and max(1, g * sms // parts))
+                            for v, vals in sets], want) for g in (None, 8, 16, 32)]
+        print(f"K11 P={parts} 1 row a thread: " + "; ".join(lines), flush=True)
+
+
+def _k11_direct(offsets, v, vals, parts, rows, max_blocks=None, lib=None):
+    """A closure that launches K11 (this tree's build, or ``lib``, a
+    variant's) through its C entry with ``rows`` rows a thread and the
+    plan's or ``max_blocks`` blocks a partition (the launch count
+    untouched)."""
+    from lanczos_adjoints_tpu_torch.parallel import fused_halo as fh
+
+    fn = (lib or native.library("halo_dia")).lat_halo_dia_matvec
+    fn.argtypes = list(native._SIGNATURES["halo_dia"]["lat_halo_dia_matvec"])
+    n = v.shape[0]
+    plan, host, offs = fh._launch_args(tuple(offsets), n, parts, v.device)
+    blocks = max_blocks or plan.max_blocks
+    out = torch.empty_like(v)
+
+    def run():
+        native.check(fn(v.data_ptr(), vals.data_ptr(), out.data_ptr(), 0, parts, plan.local_n, n, plan.halo,
+                        len(offsets), host, offs.data_ptr(), rows, blocks, torch.cuda.current_stream().cuda_stream),
+                     "K11")
+        return out
+
+    return run
+
+
+def k11_ptxas(report):
+    """``[(instantiation, registers, stack, spill stores, spill loads)]`` of K11's kernels."""
+    rows, current, frame = [], None, (0, 0, 0)
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            match = re.search(r"halo_dia_kernel(ILi(\d+)E.*?(Rows|Table))?", line)
+            current = None
+            if match:
+                current = f"{match[2]} rows a thread, {match[3]}" if match[1] else "halo_dia_kernel"
+            frame = (0, 0, 0)
+        elif current and "bytes stack frame" in line:
+            frame = tuple(int(v) for v in re.findall(r"(\d+) bytes", line)[:3])
+        elif current and "Used" in line and "registers" in line:
+            rows.append((current, int(re.search(r"Used (\d+) registers", line)[1]), *frame))
+            current = None
+    return rows
+
+
+def _print_k11_ptxas(label, report):
+    print(f"K11 ({label}): " + "; ".join(f"{name} {regs} registers, stack {stack} B, spill {st}/{ld} B"
+                                         for name, regs, stack, st, ld in k11_ptxas(report)), flush=True)
+
+
+# Where the parent's K11 spent its time: its source with parts of its
+# protocol cut out (results are not the function's, except "the kernel").
+_K11_WAIT = ("    while (!reached(load_acquire(flags[p] + 0), epoch)) __nanosleep(32);\n"
+             "    while (!reached(load_acquire(flags[p] + 1), epoch)) __nanosleep(32);\n")
+_K11_PLAIN = ("err = cudaLaunchCooperativeKernel(", "err = cudaLaunchKernel(")
+_K11_SEND = ("      to_right[t] = v[local_n - halo + t];\n      to_left[t] = v[t];\n", "")
+_K11_FIXUP = ("  if (b * blockDim.x >= edges) return;", "  return;")
+_K11_CUTS = {
+    "a plain launch, no wait": [_K11_PLAIN, (_K11_WAIT, "")],
+    "no edge fix-up": [_K11_FIXUP],
+    "no send copies (the flags still released)": [_K11_SEND],
+    "no PartPtrs indexing (partition 0's pointers)": [
+        ("ptrs.v[p];", "ptrs.v[0];"), ("ptrs.vals[p];", "ptrs.vals[0];"), ("ptrs.out[p];", "ptrs.out[0];")],
+    "the interior sweep alone (a plain launch; no send, wait or fix-up)": [
+        _K11_PLAIN, ("  if (b == 0) {", "  if (false) {"), _K11_FIXUP],
+}
+
+
+def k11_breakdown(tmp, parent):
+    """The parent's K11 at n = 2^20, D = 5, halo 1,024, P = 1 and 8, as it
+    is and with parts of its protocol cut out, with each build's registers,
+    stack and spill."""
+    jobs = {label: (_parent_source(parent, "halo_dia.cu", edits, tmp / f"k11_cut_{i}"), tmp / f"k11_cut_{i}")
+            for i, (label, edits) in enumerate({"the kernel": [], **_K11_CUTS}.items())}
+    built = build_parallel(jobs)
+    for label, (_lib, report) in built.items():
+        _print_k11_ptxas(label, report)
+    offsets, sets = _k11_data()
+    for parts in (1, 8):
+        for label, (lib, _report) in built.items():
+            old = _ParentK11(lib, offsets, parts, cs.HALO_N)
+            runs = [lambda v=v, vals=vals: old(v, vals) for v, vals in sets]
+            device, ms, clocks = _timed(cs._rotating(runs), K11_REPS, "halo_dia_kernel")
+            print(f"K11 breakdown P={parts}, parent, {label}: {_dev(1e3 * device if device is not None else None)} "
+                  f"us on the device, {1e3 * ms:.2f} us by events ({clocks})", flush=True)
+
+
+def _entered(context):
+    with context:
+        pass
+
+
+def k11_host(tmp, parent):
+    """The host's microseconds a K11 call at P = 1 and 8, in the parts of
+    this tree's wrapper and, with ``parent``, of the parent's (its views,
+    ctypes arrays, device context and C entry with its occupancy queries,
+    on the parent's library), and each whole launch path."""
+    from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
+    from lanczos_adjoints_tpu_torch.parallel import fused_halo as fh
+
+    offsets, sets = _k11_data()
+    v, vals = sets[0]
+    device = v.device
+    lib = build_parent(parent, "halo_dia.cu", tmp / "parent_k11_host") if parent else None
+    for parts in (1, 8):
+        plan, _host, _offs = fh._launch_args(tuple(offsets), cs.HALO_N, parts, device)
+        out = torch.empty_like(v)
+        this = {
+            "the operand checks": lambda: fd.check_operands(v, vals),
+            "the cached plan and offsets": lambda p=parts: fh._launch_args(tuple(offsets), cs.HALO_N, p, device),
+            "the output's allocation": lambda: torch.empty_like(v),
+            "the pointers and rows a thread": lambda: plan.rows(cs.HALO_N, v.data_ptr(), vals.data_ptr(),
+                                                                out.data_ptr()),
+            "the current-device check": lambda: _entered(fh._device(device)),
+            "the stream": lambda: native.stream(device),
+            "the raw stream handle": lambda: torch._C._cuda_getCurrentRawStream(device.index),
+            "the C entry through ctypes": _k11_direct(offsets, v, vals, parts,
+                                                      plan.rows(cs.HALO_N, v.data_ptr(), vals.data_ptr())),
+            "the wrapper": lambda p=parts: fh.halo_dia_rows(offsets, v, vals, p),
+        }
+        times = {label: _host_us(fn) for label, fn in this.items()}
+        print(f"K11 host P={parts}, this tree, us a call: "
+              + ", ".join(f"{label} {us:.1f}" for label, us in times.items()) + f"; clocks {cs._clocks()}", flush=True)
+        if lib is None:
+            continue
+        old = _ParentK11(lib, offsets, parts, cs.HALO_N)
+        views = old.views(v, vals, out)
+        arrays = old.arrays(*views)
+        parent_parts = {
+            "3P views": lambda: old.views(v, vals, out),
+            "the ctypes pointer and offsets arrays": lambda: old.arrays(*views),
+            "torch.cuda.device": lambda: _entered(torch.cuda.device(device)),
+            "the C entry through ctypes (its occupancy queries, the epoch)": lambda: old.call(*arrays),
+            "the launch path without the checks": lambda: old(v, vals),
+        }
+        times = {label: _host_us(fn) for label, fn in parent_parts.items()}
+        print(f"K11 host P={parts}, parent, us a call: "
+              + ", ".join(f"{label} {us:.1f}" for label, us in times.items()) + f"; clocks {cs._clocks()}", flush=True)
+
+
+_K11_PATHS = """
+import json, time
+import torch
+import chip_smoke as cs
+from lanczos_adjoints_tpu_torch import parallel
+from lanczos_adjoints_tpu_torch.krylov import lanczos
+from lanczos_adjoints_tpu_torch.ops import sparse
+from lanczos_adjoints_tpu_torch.parallel import fused_halo as fh
+from lanczos_adjoints_tpu_torch.utils import test_util
+from lanczos_adjoints_tpu_torch.utils.precision import pin_float32
+from lanczos_adjoints_tpu_torch.utils.timing import events_ms
+
+def host_us(fn, reps=100):
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - start) / reps * 1e6
+    torch.cuda.synchronize()
+    return host
+
+pin_float32()
+out = {}
+mat = test_util.five_diagonal(cs.HALO_N, cs.HALO_BANDWIDTH)
+dia = sparse.dia_pack(mat)
+vals = sparse.dia_values(dia, mat.data, device="cuda")
+v0 = torch.ones(cs.HALO_N, device="cuda")
+for parts in (1, 8):
+    ring = fh.HaloExchange(parts, fh.halo_width(dia.offsets)) if hasattr(fh, "HaloExchange") else parts
+    out[f"K11 wrapper P={parts}, host us a call"] = host_us(lambda: fh.halo_dia_rows(dia.offsets, v0, vals, ring))
+for parts in cs.HALO_MESHES:
+    matvec = parallel.sharded_dia_operator(dia, parallel.device_mesh(parts, device="cuda"))
+    estimate = lanczos.tridiag(matvec, cs.HALO_DEPTH, reortho="none")
+    cs._one_vjp(estimate, v0, vals)
+    out[f"sharded Lanczos VJP P={parts}, ms"] = events_ms(lambda: cs._one_vjp(estimate, v0, vals), 20)
+print("K11PATHS " + json.dumps(out), flush=True)
+"""
+
+
+def k11_paths(parent):
+    """K11's wrapper (host us a call, P = 1 and 8) and the sharded Lanczos
+    VJP at n = 2^20, K = 30 (CUDA events, mean of 20, P = 1, 2, 4, 8), each
+    tree's own code in a process of its own: parent, this, this, parent."""
+    here = Path(__file__).resolve().parent.parent
+    runs = []
+    for label, tree in (("parent", parent), ("this", here), ("this", here), ("parent", parent)):
+        proc = subprocess.run([sys.executable, "-c", _K11_PATHS], cwd=tree, capture_output=True, text=True)
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("K11PATHS ")]
+        if proc.returncode != 0 or not line:
+            raise RuntimeError(f"{label} paths failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        runs.append((label, json.loads(line[0][len("K11PATHS "):])))
+    for key in runs[0][1]:
+        print(f"K11 path {key}: " + ", ".join(f"{label} {values[key]:.3f}" for label, values in runs)
+              + f"; clocks {cs._clocks()}", flush=True)
+
+
 def build_parent(parent, source, workdir):
     """The parent commit's ``source``, compiled and loaded."""
     csrc = parent / "lanczos_adjoints_tpu_torch" / "csrc"
@@ -1395,15 +1755,15 @@ def parent_comparison(tmp, parent, n=400_000):
 
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", default="k1,k2,k3,k6,k7,k9,k10",
-                        help="comma-separated kernels: k1, k2, k3, k6, k7, k9, k10")
+    parser.add_argument("--only", default="k1,k2,k3,k6,k7,k9,k10,k11",
+                        help="comma-separated kernels: k1, k2, k3, k6, k7, k9, k10, k11")
     parser.add_argument("--parent", type=Path, help="a tree of an earlier commit to time against")
     parser.add_argument("--breakdown", action="store_true",
-                        help="K2, K3, K6, K7 and K9: time the kernel with parts of its work removed")
+                        help="K2, K3, K6, K7, K9 and K11: time the kernel with parts of its work removed")
     args = parser.parse_args(argv)
     only = set(args.only.split(","))
-    if not only <= {"k1", "k2", "k3", "k6", "k7", "k9", "k10"}:
-        parser.error(f"--only takes k1, k2, k3, k6, k7, k9, k10, got {args.only!r}")
+    if not only <= {"k1", "k2", "k3", "k6", "k7", "k9", "k10", "k11"}:
+        parser.error(f"--only takes k1, k2, k3, k6, k7, k9, k10, k11, got {args.only!r}")
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device", file=sys.stderr)
         return 2
@@ -1428,6 +1788,10 @@ def main(argv) -> int:
                 k9_parent(tmp, args.parent)
                 if (args.parent / "chip_smoke.py").exists():
                     k9_paths(args.parent)
+            if "k11" in only and not args.breakdown:
+                k11_parent(tmp, args.parent)
+                if (args.parent / "chip_smoke.py").exists():
+                    k11_paths(args.parent)
             if only & {"k1", "k10"}:
                 parent_comparison(tmp, args.parent)
         if args.breakdown:
@@ -1440,6 +1804,10 @@ def main(argv) -> int:
                 k7_breakdown(tmp, args.parent)
             if "k9" in only:
                 k9_breakdown(tmp)
+            if "k11" in only:
+                if args.parent is None:
+                    parser.error("--only k11 --breakdown cuts the parent's kernel: give --parent DIR")
+                k11_breakdown(tmp, args.parent)
         else:
             if "k2" in only:
                 k2_variants(tmp)
@@ -1451,6 +1819,9 @@ def main(argv) -> int:
                 k7_variants(tmp)
             if "k9" in only:
                 k9_variants(tmp)
+            if "k11" in only:
+                k11_variants(tmp)
+                k11_host(tmp, args.parent)
         if "k1" in only:
             k1_variants(tmp)
         if "k10" in only:

@@ -26,6 +26,7 @@ from lanczos_adjoints_tpu_torch.utils import test_util  # noqa: E402
 from lanczos_adjoints_tpu_torch.utils.precision import pin_float32  # noqa: E402
 
 N = 16_384
+H100_SMS = 132
 # The JAX halo tests' tolerances (tests/test_parallel/test_pallas_halo.py).
 TOL_VALUE, TOL_GRAD = 1e-5, 1e-4
 
@@ -99,22 +100,37 @@ def test_gradients_match_jax_grad_through_both_operators():
 # Operators the JAX package computes and K11 once refused on the card: 65
 # and 100 diagonals (the DIA kernels took at most 64), and a halo wider
 # than half the local rows (n = 1,000 over 8 partitions, halo 63 of 125
-# rows: the first and last 63 rows of a partition overlap).
+# rows: the first and last 63 rows of a partition overlap), up to all of
+# them (n = 1,040 over 8, halo 130 of 130 rows).
 WIDE_CASES = [(2048, tuple(range(-32, 33))),
               (2048, tuple(3 * k for k in range(-50, 51) if k)),
               (1000, (-63, 0, 63)),
-              (1000, (-63, -62, -1, 0, 1, 62, 63))]
+              (1000, (-63, -62, -1, 0, 1, 62, 63)),
+              (1040, (-130, -1, 0, 1, 130))]
 
 
 @pytest.mark.parametrize(("n", "offsets"), WIDE_CASES,
-                         ids=["65 diagonals", "100 diagonals", "halo 63 of 125 rows", "halo 63, 7 diagonals"])
+                         ids=["65 diagonals", "100 diagonals", "halo 63 of 125 rows", "halo 63, 7 diagonals",
+                              "halo 130 of 130 rows"])
 def test_many_diagonals_and_wide_halos_match_the_jax_ppermute_operator(monkeypatch, n, offsets):
     """The port's operator on the card's route (K11's wrapper, its plain
     version on CPU tensors) and its gradients against the JAX ppermute
     operator, which takes any number of diagonals and any halo <= local rows."""
+    _hold_to_the_jax_ppermute_operator(monkeypatch, n, offsets, 8)
+
+
+@pytest.mark.parametrize(("n", "n_partitions"), [(N, 1), (N, 2), (4098, 3)])
+def test_the_card_route_matches_the_jax_ppermute_operator_on_p_partitions(monkeypatch, n, n_partitions):
+    """As above on 1, 2 and 3 of the 8 virtual devices; 4,098 rows over 3
+    partitions leave 1,366 local rows, not a multiple of 4 (K11's path of
+    1 row a thread on the card)."""
+    _hold_to_the_jax_ppermute_operator(monkeypatch, n, (-130, -7, 0, 7, 130), n_partitions)
+
+
+def _hold_to_the_jax_ppermute_operator(monkeypatch, n, offsets, n_partitions):
     dia_j, dia_t, vals = _operator(n, offsets)
     assert len(dia_t.offsets) == len(offsets)
-    mesh_j = jparallel.device_mesh(8)
+    mesh_j = jparallel.device_mesh(n_partitions)
     rng = np.random.default_rng(4)
     v, u = (rng.normal(size=n).astype(np.float32) for _ in range(2))
     args_j = _jax_sharded(mesh_j, v, vals)
@@ -123,7 +139,7 @@ def test_many_diagonals_and_wide_halos_match_the_jax_ppermute_operator(monkeypat
     grads_j = [np.asarray(g) for g in jax.jit(jax.grad(
         lambda vv, vl: jnp.sum(jnp.asarray(u) * op_j(vv, vl)), argnums=(0, 1)))(*args_j)]
     monkeypatch.setattr(native, "on_card", lambda device: True)
-    op = parallel.sharded_dia_operator(dia_t, parallel.device_mesh(8, device="cpu"))
+    op = parallel.sharded_dia_operator(dia_t, parallel.device_mesh(n_partitions, device="cpu"))
     args = [torch.tensor(v, requires_grad=True), torch.tensor(vals, requires_grad=True)]
     out = op(*args)
     np.testing.assert_allclose(out.detach().numpy(), want, atol=TOL_VALUE, rtol=0)
@@ -131,27 +147,33 @@ def test_many_diagonals_and_wide_halos_match_the_jax_ppermute_operator(monkeypat
         np.testing.assert_allclose(g.numpy(), wg, atol=TOL_GRAD, rtol=0)
 
 
-@pytest.mark.parametrize("n_partitions", [1, 2, 8])
+@pytest.mark.parametrize("n_partitions", [1, 2, 3, 8, 64])
 @pytest.mark.parametrize("offsets", [(-1, 0, 1), (-130, -7, 0, 7, 130), (-1024, -1, 0, 1, 1024)])
 def test_plain_halo_equals_the_unsharded_dia_matvec_exactly(n_partitions, offsets):
     """The same products summed in the same order (k = 0 .. D - 1 from
     zero), so bit for bit; random values in every slot, the wrapped ones
-    too."""
+    too. n is N or the nearest multiple of P below it (5,461 local rows
+    over 3 partitions, not a multiple of 4), and at least P x halo
+    (64 x 1,024 rows: every row an edge row)."""
+    n = n_partitions * max(N // n_partitions, fused_halo.halo_width(offsets))
     rng = np.random.default_rng(4)
-    v, u = (torch.tensor(rng.standard_normal(N), dtype=torch.float32) for _ in range(2))
-    vals = torch.tensor(rng.standard_normal((len(offsets), N)), dtype=torch.float32)
+    v, u = (torch.tensor(rng.standard_normal(n), dtype=torch.float32) for _ in range(2))
+    vals = torch.tensor(rng.standard_normal((len(offsets), n)), dtype=torch.float32)
     want = fused_dia.dia_matvec_plain(offsets, v, vals)
     assert torch.equal(fused_halo.halo_dia_plain(offsets, v, vals, n_partitions), want)
-    exchange = fused_halo.HaloExchange(n_partitions, fused_halo.halo_width(offsets))
-    assert torch.equal(fused_halo.halo_dia_rows(offsets, v, vals, exchange), want)
+    assert torch.equal(fused_halo.halo_dia_rows(offsets, v, vals, n_partitions), want)
     # One allocation per partition, as K11 takes them on the card.
     parts = fused_halo.halo_dia_parts(
         offsets, [c.clone() for c in v.chunk(n_partitions)],
-        [c.contiguous() for c in vals.chunk(n_partitions, dim=1)], exchange,
+        [c.contiguous() for c in vals.chunk(n_partitions, dim=1)],
     )
     assert torch.equal(torch.cat(parts), want)
     assert torch.equal(fused_halo.halo_dvals_plain(offsets, v, u, n_partitions),
                        fused_dia.dia_dvals_plain(offsets, v, u))
+    # Summed with fused multiply-adds (K4's and K11's rounding on the card):
+    # the same sums within a rounding a term.
+    fused = fused_halo.halo_dia_plain(offsets, v, vals, n_partitions, fused=True)
+    torch.testing.assert_close(fused, want, rtol=0, atol=4e-7 * len(offsets) * float(want.abs().max()))
 
 
 def test_nonsymmetric_values_keep_each_operators_vjp():
@@ -213,13 +235,13 @@ def test_every_jax_error_has_its_counterpart():
     with pytest.raises(ValueError, match="divide evenly"):
         parallel.sharded_dia_operator_fused(_operator(1001, (-1, 0, 1))[1], mesh_t, check_tiling=False)
     with pytest.raises(TypeError, match="float32"):
-        fused_halo.halo_dia_rows((-1, 0, 1), torch.ones(1024).double(), torch.ones(3, 1024).double(),
-                                 fused_halo.HaloExchange(8, 1))
-    with pytest.raises(ValueError, match="halo 1 of the offsets, 2"):
-        fused_halo.halo_dia_rows((-1, 0, 1), torch.ones(1024), torch.ones(3, 1024),
-                                 fused_halo.HaloExchange(8, 2))
+        fused_halo.halo_dia_rows((-1, 0, 1), torch.ones(1024).double(), torch.ones(3, 1024).double(), 8)
+    with pytest.raises(ValueError, match="exceeds local rows"):
+        fused_halo.halo_dia_rows((-2, 0, 2), torch.ones(8), torch.ones(3, 8), 8)
     with pytest.raises(ValueError, match="partitions"):
-        fused_halo.HaloExchange(native.MAX_PARTITIONS + 1, 1)
+        fused_halo.halo_dia_rows((-1, 0, 1), torch.ones(1040), torch.ones(3, 1040), native.MAX_PARTITIONS + 1)
+    with pytest.raises(ValueError, match="value blocks"):
+        fused_halo.halo_dia_parts((-1, 0, 1), [torch.ones(8)] * 2, [torch.ones(3, 8)])
 
 
 @pytest.fixture
@@ -229,9 +251,9 @@ def _on_card(monkeypatch):
     calls = []
     wrapped = fused_halo.halo_dia_rows
 
-    def spy(offsets, v, vals, exchange, *, kernel=fused_halo.HALO_DIA):
+    def spy(offsets, v, vals, n_partitions, *, kernel=fused_halo.HALO_DIA):
         calls.append(kernel.name)
-        return wrapped(offsets, v, vals, exchange, kernel=kernel)
+        return wrapped(offsets, v, vals, n_partitions, kernel=kernel)
 
     monkeypatch.setattr(fused_halo, "halo_dia_rows", spy)
     return calls
@@ -263,14 +285,48 @@ def test_on_the_card_the_sharded_operator_takes_k11_and_tridiag_stays_generic(_o
     assert _on_card == ["halo_dia_matvec", "halo_dia_matvec_transposed"]
 
 
-def test_exchange_buffers_start_poisoned_and_epochs_wrap():
-    exchange = fused_halo.HaloExchange(3, 5)
-    recv, flags, recv_table, flag_table = exchange.buffers("cpu")
-    assert len(recv) == 3 and recv[0].shape == (2, 2, 5) and bool(torch.isnan(recv[2]).all())
-    assert all(int(f.abs().sum()) == 0 for f in flags)
-    assert recv_table.tolist() == [t.data_ptr() for t in recv]
-    assert flag_table.tolist() == [t.data_ptr() for t in flags]
-    assert exchange.buffers("cpu")[2] is recv_table
-    assert [exchange.next_epoch() for _ in range(2)] == [1, 2]
-    exchange.epoch = 2**32 - 1
-    assert exchange.next_epoch() == 0
+@pytest.mark.parametrize(("n", "n_partitions", "vector", "max_blocks"), [
+    (1 << 20, 8, True, 132),  # the slice's operator: 131,072 rows a partition
+    (1 << 20, 1, True, 1056),
+    (1 << 20, 64, True, 16),
+    (1_000_000, 64, False, 16),  # 15,625 local rows
+    (1000, 8, False, 132),  # 125 local rows
+    (16_383, 3, False, 352),
+])
+def test_plan_takes_4_rows_a_thread_where_the_local_rows_allow(n, n_partitions, vector, max_blocks):
+    """4 rows a thread (float4 values and output) where local_n % 4 == 0;
+    at most one wave of the card's 8 x 132 block slots over all partitions."""
+    plan = fused_halo.halo_plan((-1, 0, 1), n, n_partitions, H100_SMS)
+    assert plan.local_n == n // n_partitions and plan.halo == 1
+    assert plan.vector is vector and plan.max_blocks == max_blocks
+    assert plan.rows(n, 0, 512) == (4 if vector else 1)
+
+
+def test_plan_takes_1_row_a_thread_on_misaligned_operands():
+    """A launch on the vector path needs every pointer it reads or writes by
+    float4 (the values and the output) 16-byte aligned and a row stride
+    that is a multiple of 4."""
+    plan = fused_halo.halo_plan((-130, 0, 130), 1 << 20, 8, H100_SMS)
+    assert plan.rows(1 << 20, 1024, 2048, 4096) == 4
+    assert plan.rows(1 << 20, 1028, 2048) == 1  # values offset by one float
+    assert plan.rows(1 << 20, 1024, 2056) == 1  # output offset by two floats
+    assert plan.rows((1 << 20) + 2, 1024, 2048) == 1  # a row stride of 2 mod 4
+    # Views offset by one float take 1 row a thread; the CPU runs the
+    # plain version all the same.
+    v, vals = torch.ones(1 << 20), torch.ones(3, 1 << 20)
+    shifted = torch.empty(vals.numel() + 1)[1:].view(vals.shape).copy_(vals)
+    assert plan.rows(1 << 20, shifted.data_ptr()) == 1
+    assert torch.equal(fused_halo.halo_dia_rows((-130, 0, 130), v, shifted, 8),
+                       fused_halo.halo_dia_rows((-130, 0, 130), v, vals, 8))
+
+
+@pytest.mark.parametrize(("offsets", "n", "n_partitions", "match"), [
+    ((-1, 0, 1), 1024, 0, "partitions"),
+    ((-1, 0, 1), 65 * 16, native.MAX_PARTITIONS + 1, "partitions"),
+    ((-1, 0, 1), 1001, 8, "divide evenly"),
+    ((-126, 0, 126), 1000, 8, "exceeds local rows"),
+    ((), 1024, 8, "at least one diagonal"),
+])
+def test_plan_refuses_what_k11_does_not_take(offsets, n, n_partitions, match):
+    with pytest.raises(ValueError, match=match):
+        fused_halo.halo_plan(offsets, n, n_partitions, H100_SMS)

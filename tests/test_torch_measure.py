@@ -3,7 +3,8 @@
 K1's column split (``fused_gram.column_splits``), the report that holds
 a profiler's launch counts to the kernel registry's
 (``utils.timing.launch_report``), on a fake profiler table, and the Gram
-kernels' and K9's bounds as ``chip_smoke.py`` computes them.
+kernels', K6's, K9's and K11's bounds and traffic as ``chip_smoke.py``
+computes them.
 """
 
 import pytest
@@ -165,3 +166,21 @@ def test_k6_traffic(n, num_diags, once_ms, parent_ms, per_step):
     assert got["bytes_parent_schedule"] == 4 * 90 * (num_diags + 8) * n
     assert got["bytes_schedule"] == 4 * (90 * per_step + plan.resident_diags + 2) * n
     assert got["bytes_once"] <= got["bytes_schedule"] < got["bytes_parent_schedule"]
+
+
+@pytest.mark.parametrize("n_partitions", [1, 2, 4, 8])
+def test_k11_bound_and_traffic(n_partitions):
+    """K11 at the slice's shape (n = 2^20, D = 5, halo 1,024), as
+    ``[timing-halo]`` computes it: bound by bytes, each array once (the
+    values, v and the output: 8.76 us); this schedule reads the 2 P halo
+    floats of the neighbours once more, the parent's also wrote them into
+    receive buffers and read them back."""
+    cs = _chip_smoke()
+    n, num_diags, halo = 1 << 20, 5, 1024
+    got = cs._k11_traffic(n, num_diags, n_partitions, halo)
+    bound_ms, by = cs._bound(got["bytes_once"], 2 * num_diags * n)
+    assert by == "bytes" and bound_ms == pytest.approx(8.764e-3, rel=1e-3)
+    halos = 4 * 2 * n_partitions * halo
+    assert got["bytes_once"] == 4 * 7 * n
+    assert got["bytes_schedule"] - got["bytes_once"] == halos
+    assert got["bytes_parent_schedule"] - got["bytes_once"] == 3 * halos
