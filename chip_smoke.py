@@ -15,13 +15,22 @@ Phases, in order:
      {1, 15, 40} and K2 at m in {1, 8, 15, 225, 400}, ragged row counts;
      K1's short transcendentals entry by entry from p = 0 to distances of
      ~30; K1 with its column split at 50,000 x 400,000 (the first 4,096
-     rows);
+     rows) and at the posterior mean's 100,000 x 400,000 (the first 3,000);
   4. the oracle: at N = 2,048 the Krylov marginal likelihood against a
      dense Cholesky one, and its gradient through the kernels against
      the gradient through the plain versions;
   5. the slice: Adam steps of the GP training step at N_train = 400,000
-     (the reference's largest configuration), with per-step K1/K2
-     launch counts;
+     (the reference's largest configuration) from the JAX ``adj400k``
+     run's initial parameters (``train.gp.ADJ400K_INIT``), with per-step
+     K1/K2 launch counts, each loss within 1 % of that run's
+     (``results/.../adj400k_synthetic_gp500k_s1_loss_curve.npy``);
+     then the driver: ``train.gp.run`` at the ``adj400k`` arguments with
+     no epoch, from that run's final parameters (its ``params_opt``): the
+     pivoted Cholesky at 400,000, ``predict_mean`` (PCG at 400,000, then
+     K1 at the test-by-train cross shape 100,000 x 400,000) and
+     ``mll_eval`` on the 100,000 test points, test RMSE and NLL within
+     1 % of that run's, its eleven series written, K1 launches and wall
+     time by shape;
   6. DIA parity: K4 (``csrc/dia.cu``), K4 on the transpose (through the
      autograd backward) and K5 against their plain versions, offsets
      (-1, 0, 1), (-130, -7, 0, 7, 130), 65 and 100 diagonals with random
@@ -176,8 +185,13 @@ TOL_DVALS = 0.0
 SPREAD_FACTOR = 10.0
 SPREAD_FLOOR = 1e-6
 
-# The reference's largest run: N_train = 400,000 (the JAX driver's adj400k).
+# The reference's largest run: N_train = 400,000 (the JAX driver's adj400k),
+# and its test set of 100,000.
 N_TRAIN = 400_000
+N_TEST = N_TRAIN // 4
+# The port against the JAX adj400k run (train.gp.ADJ400K_ARGS and
+# train.gp.adj400k_jax_result): relative gaps in the losses, test RMSE and NLL.
+TOL_JAX_RUN = 1e-2
 DEVICE = "cuda"
 # The sparse slice: bench.py's Lanczos depth, its 128 x 128 grid and the
 # 1024 x 1024 grid (the largest DIA case the JAX package was run at).
@@ -357,11 +371,12 @@ def _parity_k1_tails(kinds, failures):
                     rel if tiny <= 2e-30 else float("inf"), TOL_K1, failures)
 
 
-def _parity_k1_split(failures, cases=((50_000, N_TRAIN, 8, (1, 15), 4096), (3_000, 20_000, 130, (15,), 3_000))):
+def _parity_k1_split(failures, cases=((50_000, N_TRAIN, 8, (1, 15), 4096), (N_TEST, N_TRAIN, 8, (1,), 3_000),
+                                     (3_000, 20_000, 130, (15,), 3_000))):
     """K1 with its column split, the segments summed in the launch: at one of
-    8 row partitions of the main path's shape (the first rows against the
-    plain version), and on wide rows (the staged kernel), bit for bit
-    across two runs."""
+    8 row partitions of the main path's shape and at the posterior mean's
+    test-by-train shape (the first rows against the plain version), and on
+    wide rows (the staged kernel), bit for bit across two runs."""
     from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
 
     g = torch.Generator(device=DEVICE).manual_seed(3)
@@ -472,13 +487,15 @@ def phase_slice(n_train, steps):
     stack = train_gp.assemble(n_train=n_train, ndim=8, device=DEVICE)
     print(f"[slice] matern32 ARD, N_train={n_train}, d=8, 15 Lanczos x 15 probes, "
           f"PCG atol=1.0 miniter=10 maxiter=25, rank {stack.rank} (500 rounded down "
-          f"to block 64), Adam lr=0.05, {steps} steps", flush=True)
-    params = torch.randn(stack.num_params, generator=torch.Generator().manual_seed(1))
+          f"to block 64), Adam lr=0.05, {steps} steps from the JAX adj400k run's initial "
+          f"parameters, each loss held to that run's within {TOL_JAX_RUN:.0%}", flush=True)
+    jax_losses = train_gp.adj400k_jax_result("loss_curve")
+    params = torch.tensor(train_gp.ADJ400K_INIT, dtype=torch.float32)
     opt = train_gp.AdamIfFinite(params.to(DEVICE).requires_grad_(), lr=0.05)
     key = torch.Generator(device=DEVICE).manual_seed(1)
     gram = (native.KERNELS["gram_matvec"], native.KERNELS["gram_grads"])
     native.reset_launches()
-    per_step, times = [], []
+    per_step, times, gaps = [], [], []
     for step in range(steps):
         before = [k.launches for k in gram]
         torch.cuda.synchronize()
@@ -490,16 +507,98 @@ def phase_slice(n_train, steps):
         per_step.append(counts)
         times.append(seconds)
         finite = bool(torch.isfinite(grad).all()) and bool(torch.isfinite(value))
-        print(f"  step {step}: loss {value.item():.6f} cg_steps "
-              f"{float(info['logpdf']['solve']['num_steps']):.0f} grad finite {finite} "
+        gap = value.item() / jax_losses[step] - 1.0
+        gaps.append(gap)
+        print(f"  step {step}: loss {value.item():.6f} (JAX run {jax_losses[step]:.6f}, gap {gap:+.3%}) "
+              f"cg_steps {float(info['logpdf']['solve']['num_steps']):.0f} grad finite {finite} "
               f"applied {applied} wall {seconds:.3f} s launches "
               f"K1 {counts[0]} K2 {counts[1]}", flush=True)
-        if not finite or min(counts) == 0:
-            raise RuntimeError(f"slice step {step} failed (finite={finite}, launches={counts})")
+        if not finite or min(counts) == 0 or not abs(gap) <= TOL_JAX_RUN:
+            raise RuntimeError(f"slice step {step} failed (finite={finite}, launches={counts}, "
+                               f"gap to the JAX run {gap:+.3%})")
     totals = [k.launches for k in gram]
     print(f"  launches over {steps} steps: K1 {totals[0]}, K2 {totals[1]}; "
           f"step wall times {[round(t, 3) for t in times]}")
-    return {"launches": totals, "per_step": per_step, "step_s": times}
+    return {"launches": totals, "per_step": per_step, "step_s": times, "gaps": gaps}
+
+
+def phase_slice_driver():
+    """The driver's evaluation at the adj400k configuration, at the JAX run's
+    final parameters: ``train.gp.run`` with no epoch, through the pivoted
+    Cholesky, ``predict_mean`` (PCG at 400,000, then the 100,000 x 400,000
+    cross product) and ``mll_eval`` on the test set; test RMSE and NLL
+    within 1 % of the JAX run's, the eleven series written. K1 launches are
+    tallied by shape (rows, columns, m) with their wall time, each launch
+    synchronised before and after."""
+    import argparse
+    import os
+    import tempfile
+
+    from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.train import gp as train_gp
+
+    params0 = train_gp.adj400k_jax_result("params_opt")
+    want = {"rmse": float(train_gp.adj400k_jax_result("test_rmses")),
+            "nll": float(train_gp.adj400k_jax_result("test_nlls"))}
+    print(f"[slice-driver] train.gp.run at the adj400k arguments, no epoch, from the JAX run's params_opt: "
+          f"predict_mean and mll_eval on the test set, held to the JAX run's RMSE {want['rmse']:.5f} and "
+          f"NLL {want['nll']:.5f} within {TOL_JAX_RUN:.0%}", flush=True)
+    by_shape = {}
+    launch = fg.gram_matvec_rows
+
+    def tallied(kind, xs, ys, v2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = launch(kind, xs, ys, v2)
+        torch.cuda.synchronize()
+        key = (xs.shape[0], ys.shape[0], v2.shape[1])
+        count, seconds = by_shape.get(key, (0, 0.0))
+        by_shape[key] = (count + 1, seconds + time.perf_counter() - t0)
+        return out
+
+    with tempfile.TemporaryDirectory() as out:
+        args = train_gp.build_argparser(argparse.ArgumentParser()).parse_args(
+            [*train_gp.ADJ400K_ARGS, "--num_epochs", "0", "--out", out])
+        fg.gram_matvec_rows = tallied
+        native.reset_launches()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = train_gp.run(args, solver_mode="adaptive", params0=params0)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            fg.gram_matvec_rows = launch
+        counts = _launches(("gram_matvec", "gram_grads"))
+        files = sorted(os.listdir(out))
+        saved = np.load(f"{result.path}_params_opt.npy")
+    names = sorted(f"adj400k_synthetic_gp500k_s1_{name}.npy" for name in train_gp.RESULTS)
+    gaps = {"rmse": result.test_rmse / want["rmse"] - 1.0, "nll": result.test_nll / want["nll"] - 1.0}
+    steps = {"predict_mean": float(result.predict_info["solve"]["num_steps"]),
+             "mll_eval": float(result.eval_info["logpdf"]["solve"]["num_steps"])}
+    print(f"  test RMSE {result.test_rmse:.6f} (JAX run {want['rmse']:.6f}, gap {gaps['rmse']:+.3%}), "
+          f"test NLL {result.test_nll:.6f} (JAX run {want['nll']:.6f}, gap {gaps['nll']:+.3%})", flush=True)
+    print(f"  PCG steps: predict_mean {steps['predict_mean']:.0f} (atol 1e-2), mll_eval {steps['mll_eval']:.0f} "
+          f"(atol 1e-4); wall: run {seconds:.2f} s, predict_mean {result.seconds['predict_mean']:.2f} s, "
+          f"mll_eval {result.seconds['mll_eval']:.2f} s", flush=True)
+    for (rows, cols, m), (count, secs) in sorted(by_shape.items()):
+        print(f"  K1 {rows} x {cols} m={m}: {count} launches, {secs:.3f} s (synchronised)", flush=True)
+    print(f"  launches: K1 {counts['gram_matvec']}, K2 {counts['gram_grads']}; {len(files)} files written, "
+          f"params_opt equal to params0 {np.array_equal(saved, params0)}", flush=True)
+    failures = [k for k, gap in gaps.items() if not abs(gap) <= TOL_JAX_RUN]
+    if files != names:
+        failures.append(f"files {files}")
+    if not np.array_equal(saved, params0):
+        failures.append("params_opt differs from params0")
+    if counts["gram_matvec"] == 0 or by_shape.get((N_TEST, N_TRAIN, 1), (0,))[0] != 1:
+        failures.append(f"K1 launches {counts}, by shape {by_shape}")
+    if failures:
+        raise RuntimeError(f"slice-driver failed: {failures}")
+    return {"launches": counts["gram_matvec"], "by_shape": {f"{r}x{c} m={m}": n for (r, c, m), (n, _s) in
+                                                            by_shape.items()},
+            "pcg_steps": steps, "seconds": {"run": seconds, **result.seconds},
+            "test_rmse": result.test_rmse, "test_nll": result.test_nll}
 
 
 def phase_parity_dgrads(rows=(3001, 2777), kinds=("rbf", "matern12", "matern32"),
@@ -657,10 +756,11 @@ def _gram_bound(kernel, cells, m, nbytes):
     return 1e3 * max(ops, nbytes / PEAK_BYTES), "operations" if ops >= nbytes / PEAK_BYTES else "bytes", old
 
 
-def phase_timing(n, slice_counts, dgrads_counts, split_rows=50_000):
-    """Gram kernel and plain times at the GP slices' shapes, and K1 at one of
-    8 row partitions (``split_rows`` x n, the column split); their
-    kernels-line entries."""
+def phase_timing(n, slice_counts, dgrads_counts, driver, split_rows=50_000):
+    """Gram kernel and plain times at the GP slices' shapes, K1 at one of
+    8 row partitions (``split_rows`` x n, the column split) and at the
+    posterior mean's cross shape (``N_TEST`` x n); their kernels-line
+    entries, K1's with the driver's launches by shape."""
     from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
     from lanczos_adjoints_tpu_torch.utils.timing import events_ms
 
@@ -669,10 +769,11 @@ def phase_timing(n, slice_counts, dgrads_counts, split_rows=50_000):
     X = torch.randn((n, 8), generator=g, device=DEVICE)
     ell = torch.full((8,), 0.9, device=DEVICE)
     xs = fg.kernel_rows(X, ell, "matern32")
-    kinds = {"K1": [1, 15], "K2": [1, 225], "K3": [1, 225], "K1 split": [1, 15]}
+    kinds = {"K1": [1, 15], "K2": [1, 225], "K3": [1, 225], "K1 split": [1, 15], "K1 cross": [1]}
+    row_counts = {"K1 split": split_rows, "K1 cross": N_TEST}
     shapes = {}
     for kernel, ms_ in kinds.items():
-        rows = xs[:split_rows] if kernel == "K1 split" else xs
+        rows = xs[:row_counts.get(kernel, n)]
         n_rows = rows.shape[0]
         for m in ms_:
             v = torch.randn((n, m), generator=g, device=DEVICE)
@@ -737,6 +838,9 @@ def phase_timing(n, slice_counts, dgrads_counts, split_rows=50_000):
         }
         if kernel == "K1":
             entry["split"] = [shapes[("K1 split", m)] for m in kinds["K1 split"]]
+            entry["cross"] = [shapes[("K1 cross", m)] for m in kinds["K1 cross"]]
+            entry["launches_driver"] = driver["launches"]
+            entry["launches_driver_by_shape"] = driver["by_shape"]
         entries.append(entry)
     return entries
 
@@ -2790,6 +2894,7 @@ def phase_timing_halo(slice_run):
 
 
 def main() -> int:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
@@ -2802,9 +2907,10 @@ def main() -> int:
     phase_parity()
     phase_oracle()
     counts = phase_slice(N_TRAIN, steps=3)
+    driver = phase_slice_driver()
     phase_parity_dgrads()
     dgrads = phase_slice_dgrads(N_TRAIN)
-    entries = phase_timing(N_TRAIN, counts, dgrads)
+    entries = phase_timing(N_TRAIN, counts, dgrads, driver)
     phase_parity_dia()
     phase_parity_lanczos()
     slices = {m: phase_slice_sparse(m) for m in SLICE_GRIDS}
@@ -2828,6 +2934,7 @@ def main() -> int:
             key = "dia_matvec_transposed" if entry["name"] == "dia_matvec" else "dia_dvals"
             entry["launches_arnoldi_vjp"] = main_arnoldi[key]
             entry["launches_slq"] = slq_run["launches"][key]
+    print(f"[total] {time.perf_counter() - start:.1f} s of wall time, the kernels' build included", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card)
     print(json.dumps({

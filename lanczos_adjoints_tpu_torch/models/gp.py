@@ -1,9 +1,11 @@
 """Gaussian-process models with a matrix-free marginal likelihood.
 
-Counterpart of ``lanczos_adjoints_tpu/models/gp.py`` for the training
-step: targets, model, constant mean, the GPyTorch-parametrised scaled
-kernels, the preconditioned Gaussian likelihood and the log-pdf backends
-(matrix-free Krylov and the dense Cholesky oracle).
+Counterpart of ``lanczos_adjoints_tpu/models/gp.py``: targets (the
+marginal likelihood and the posterior), model, constant mean, the
+GPyTorch-parametrised scaled kernels, the Gaussian likelihoods (the
+marginal pdf and the conditioned mean, each plain or preconditioned) and
+the log-pdf backends (matrix-free Krylov and the dense Cholesky and
+``torch.distributions`` oracles).
 
 Everything is a closure factory returning ``(value, info)`` pairs, as in
 the JAX package. The one structural difference: a kernel's raw
@@ -18,6 +20,7 @@ arrange in the JAX package. Training inputs that require a gradient
 travel the same way, as one more explicit parameter of ``cov_matvec``.
 """
 
+import functools
 import math
 from typing import Callable
 
@@ -29,6 +32,8 @@ from lanczos_adjoints_tpu_torch.ops.gram import (  # noqa: F401
     gram_matrix,
     gram_matvec,
     gram_matvec_fused,
+    gram_matvec_partitioned,
+    gram_matvec_sequential,
 )
 
 # ---------------------------------------------------------------------------
@@ -52,6 +57,22 @@ def target_logml(model: Callable, likelihood: Callable, /) -> Callable:
         return loss(targets, *p_logpdf)
 
     return mll
+
+
+def target_posterior(model: Callable, likelihood: Callable, /) -> Callable:
+    """Construct a posterior-predictive target.
+
+    ``posterior(inputs, targets, params_mean, params_kernel,
+    params_likelihood) -> (condition, {})`` with ``condition(xs) ->
+    (posterior_mean, info)``.
+    """
+
+    def posterior(inputs, targets, params_mean: dict, params_kernel: dict, params_likelihood: dict):
+        mean, kernel = model(params_mean, params_kernel)
+        condition = likelihood(inputs, mean, kernel, params=params_likelihood)
+        return functools.partial(condition, targets=targets), {}
+
+    return posterior
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +223,50 @@ class _CovarianceOp:
         *params, inputs = params_and_inputs
         return self._apply_rows(inputs, inputs, v, *params)
 
+    def cross_matvec(self, xs, v, *params):
+        """``K(xs, inputs) @ v``, the posterior mean's cross covariance."""
+        return self._apply_rows(xs, self._inputs, v, *params)
+
+
+def _noisy_matvec(cov: _CovarianceOp, constrain: Callable) -> Callable:
+    """``cov_matvec(v, raw_lengthscale, raw_outputscale, raw_noise, *rows)``:
+    the Gram matvec plus ``noise * v``, with the inputs as the last
+    parameter where they need a gradient."""
+
+    def cov_matvec(v, raw_lengthscale, raw_outputscale, raw_noise, *rows):
+        if rows:
+            gram = cov.matvec_rows(v, raw_lengthscale, raw_outputscale, *rows)
+        else:
+            gram = cov.matvec(v, raw_lengthscale, raw_outputscale)
+        return gram + constrain(raw_noise) * v
+
+    return cov_matvec
+
+
+def _cov_params(kernel, raw_noise, inputs) -> tuple:
+    """The explicit parameters of ``_noisy_matvec``'s matvec."""
+    return (*kernel.params, raw_noise, *((inputs,) if inputs.requires_grad else ()))
+
+
+def likelihood_pdf(matvec: Callable, logpdf: Callable, *, constrain: Callable) -> tuple:
+    """Gaussian likelihood evaluating the marginal pdf through a lazy matvec."""
+
+    def likelihood(inputs, mean: Callable, kernel: Callable, params: dict):
+        cov = _CovarianceOp(matvec, kernel, inputs)
+
+        def logpdf_partial(targets, *p_logpdf):
+            return logpdf(
+                targets,
+                *p_logpdf,
+                mean=mean(inputs),
+                cov_matvec=_noisy_matvec(cov, constrain),
+                cov_params=_cov_params(kernel, params["raw_noise"], inputs),
+            )
+
+        return logpdf_partial
+
+    return likelihood, {"raw_noise": torch.empty(())}
+
 
 def likelihood_pdf_p(
     matvec: Callable, logpdf_p: Callable, precondition: Callable, *, constrain: Callable
@@ -221,29 +286,65 @@ def likelihood_pdf_p(
         raw_noise = params["raw_noise"]
         cov = _CovarianceOp(matvec, kernel, inputs)
         pre, info_pre = precondition(cov.elem, len(inputs))
-        explicit_rows = (inputs,) if inputs.requires_grad else ()
-
-        def cov_matvec(v, raw_lengthscale, raw_outputscale, raw_noise, *rows):
-            if rows:
-                gram = cov.matvec_rows(v, raw_lengthscale, raw_outputscale, *rows)
-            else:
-                gram = cov.matvec(v, raw_lengthscale, raw_outputscale)
-            return gram + constrain(raw_noise) * v
 
         def logpdf_partial(targets, *p_logpdf):
-            mu = mean(inputs)
             noise = constrain(raw_noise).detach()
             value, info = logpdf_p(
                 targets,
                 *p_logpdf,
-                mean=mu,
-                cov_matvec=cov_matvec,
-                cov_params=(*kernel.params, raw_noise, *explicit_rows),
+                mean=mean(inputs),
+                cov_matvec=_noisy_matvec(cov, constrain),
+                cov_params=_cov_params(kernel, raw_noise, inputs),
                 P=lambda v: pre(v, noise),
             )
             return value, {"precondition": info_pre, "logpdf": info}
 
         return logpdf_partial
+
+    return likelihood, {"raw_noise": torch.empty(())}
+
+
+def likelihood_condition(matvec: Callable, solve: Callable, *, constrain: Callable) -> tuple:
+    """Gaussian likelihood returning the conditioned (posterior) mean.
+
+    ``condition(xs, targets) -> (posterior_mean, {"solve": info})``, with
+    ``solve(cov_matvec, rhs, *cov_params)`` (``solvers.cg``).
+    """
+    return _likelihood_condition(matvec, solve, None, constrain)
+
+
+def likelihood_condition_p(
+    matvec: Callable, solve_p: Callable, *, precondition: Callable, constrain: Callable
+) -> tuple:
+    """Conditioned mean through a preconditioned solver (``P=...``).
+
+    The preconditioner sees the noiseless lazy kernel, as in
+    ``likelihood_pdf_p``.
+    """
+    return _likelihood_condition(matvec, solve_p, precondition, constrain)
+
+
+def _likelihood_condition(matvec, solve, precondition, constrain) -> tuple:
+    """``likelihood_condition[_p]``: ``precondition=None`` calls ``solve`` without ``P``."""
+
+    def likelihood(inputs, mean: Callable, kernel: Callable, params: dict):
+        raw_noise = params["raw_noise"]
+        cov = _CovarianceOp(matvec, kernel, inputs)
+        pre = None if precondition is None else precondition(cov.elem, len(inputs))[0]
+
+        def condition_partial(xs, targets):
+            kwargs = {}
+            if pre is not None:
+                noise = constrain(raw_noise).detach()
+                kwargs["P"] = lambda v: pre(v, noise)
+            weights, info = solve(
+                _noisy_matvec(cov, constrain), targets - mean(inputs),
+                *_cov_params(kernel, raw_noise, inputs), **kwargs,
+            )
+            posterior_mean = mean(xs) + cov.cross_matvec(xs, weights, *kernel.params)
+            return posterior_mean, {"solve": info}
+
+        return condition_partial
 
     return likelihood, {"raw_noise": torch.empty(())}
 
@@ -259,12 +360,28 @@ def _gaussian_logpdf(residual, half_logdet, mahalanobis):
     return -half_logdet - 0.5 * mahalanobis - n / 2 * math.log(2 * math.pi)
 
 
+def _materialize(cov_matvec: Callable, like, cov_params=()):
+    """Dense covariance from a matvec: ``cov_matvec`` on the identity (small n only)."""
+    return cov_matvec(torch.eye(len(like), dtype=like.dtype, device=like.device), *cov_params)
+
+
+def logpdf_scipy_stats() -> Callable:
+    """Materialise the covariance and take ``torch.distributions.MultivariateNormal``'s
+    log-density (the JAX package calls ``jax.scipy.stats``; the name is kept)."""
+
+    def logpdf(y, /, *, mean, cov_matvec: Callable, cov_params=()):
+        cov_matrix = _materialize(cov_matvec, mean, cov_params)
+        normal = torch.distributions.MultivariateNormal(mean, covariance_matrix=cov_matrix)
+        return normal.log_prob(y), {}
+
+    return logpdf
+
+
 def logpdf_cholesky() -> Callable:
-    """Materialise the covariance (``cov_matvec`` on the identity) and factor it."""
+    """Materialise the covariance and factor it."""
 
     def logpdf(y, /, *_p_logdet, mean, cov_matvec: Callable, cov_params=(), **_kw):
-        eye = torch.eye(len(y), dtype=y.dtype, device=y.device)
-        chol = torch.linalg.cholesky(cov_matvec(eye, *cov_params))
+        chol = torch.linalg.cholesky(_materialize(cov_matvec, y, cov_params))
         white = torch.linalg.solve_triangular(chol, (y - mean)[:, None], upper=False)[:, 0]
         value = _gaussian_logpdf(
             y - mean,
@@ -295,6 +412,11 @@ def _logpdf_matrix_free(logdet: Callable, run_solve: Callable) -> Callable:
         return value, {"logdet": info_logdet, "solve": info_solve}
 
     return logpdf
+
+
+def logpdf_krylov(solve: Callable, logdet: Callable) -> Callable:
+    """Matrix-free log-pdf: SLQ logdet + CG Mahalanobis (``solvers.cg``)."""
+    return _logpdf_matrix_free(logdet, solve)
 
 
 def logpdf_krylov_p(solve_p: Callable, logdet: Callable) -> Callable:

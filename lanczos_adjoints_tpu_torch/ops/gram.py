@@ -12,6 +12,9 @@ kernel into ``matvec(i, j, v, *params) -> K(i, j) @ v``, where ``i`` and
 
 from typing import Callable
 
+import torch
+import torch.utils.checkpoint
+
 from lanczos_adjoints_tpu_torch.ops import fused_gram
 
 
@@ -36,6 +39,57 @@ def gram_matvec() -> Callable:
         return matvec_y
 
     return matvec
+
+
+def gram_matvec_partitioned(num: int, *, checkpoint: bool) -> Callable:
+    """Gram matvec streamed over ``num`` row blocks, one after another.
+
+    Peak memory O(N^2 / num); ``checkpoint`` recomputes each block in the
+    backward pass (``torch.utils.checkpoint``) instead of storing it.
+    Raises ``ValueError`` if ``num`` does not divide the number of rows.
+    Trailing axes of ``v`` are kept: an ``(N, m)`` probe block gives an
+    ``(N, m)`` product.
+    """
+
+    def matvec(fun: Callable) -> Callable:
+        dense = gram_matvec()(fun)
+
+        def matvec_map(i, j, v, *params):
+            ndata, *feature_shape = i.shape
+            if ndata % num != 0:
+                msg = f"num = {num} does not divide dataset size {ndata}."
+                raise ValueError(msg)
+            blocks = i.reshape(num, ndata // num, *feature_shape)
+            return torch.cat([_run_block(dense, checkpoint, block, j, v, *params) for block in blocks])
+
+        return matvec_map
+
+    return matvec
+
+
+def gram_matvec_sequential(*, checkpoint: bool) -> Callable:
+    """Row-at-a-time Gram matvec (minimum memory, maximum latency).
+
+    ``checkpoint`` recomputes each row in the backward pass; trailing
+    axes of ``v`` are kept.
+    """
+
+    def matvec(fun: Callable) -> Callable:
+        dense = gram_matvec()(fun)
+
+        def matvec_map(i, j, v, *params):
+            return torch.cat([_run_block(dense, checkpoint, row[None], j, v, *params) for row in i])
+
+        return matvec_map
+
+    return matvec
+
+
+def _run_block(dense, checkpoint, rows, j, v, *params):
+    """``dense(rows, j, v, *params)``, recomputed in the backward pass if ``checkpoint``."""
+    if checkpoint and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(dense, rows, j, v, *params, use_reentrant=False)
+    return dense(rows, j, v, *params)
 
 
 def gram_matvec_fused(*, data_grads: bool = False) -> Callable:

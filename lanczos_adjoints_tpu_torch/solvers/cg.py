@@ -1,15 +1,18 @@
-"""Adaptive (preconditioned) conjugate gradients with an implicit backward pass.
+"""Fixed-step and adaptive (preconditioned) conjugate gradients with an implicit backward pass.
 
-Counterpart of ``pcg_adaptive`` / ``cg_adaptive`` in
-``lanczos_adjoints_tpu/solvers/cg.py``. ``lax.custom_linear_solve(symmetric=True)``
+Counterpart of ``pcg_fixed_step`` / ``cg_fixed_step`` and ``pcg_adaptive`` /
+``cg_adaptive`` in ``lanczos_adjoints_tpu/solvers/cg.py``.
+``lax.custom_linear_solve(symmetric=True)``
 becomes a ``torch.autograd.Function`` over ``(b, *params)``: the forward
 pass solves ``A(params) x = b`` without recording a graph, and the
 backward pass solves ``A lam = x_bar`` with the same PCG and returns
 ``lam`` for ``b`` and ``-d/dp <lam, A(p) x>`` for the parameters (one
 vector-Jacobian product of the operator; with the fused Gram matvec, one
 K2 launch). The preconditioner contributes no gradient, as in the JAX
-package. The ``while_loop`` becomes a Python loop that reads its stopping
-test on the host, one synchronisation per step.
+package. The adaptive ``while_loop`` becomes a Python loop that reads its
+stopping test on the host, one synchronisation per step; the fixed-step
+``fori_loop`` a Python loop of ``num_matvecs`` steps with no
+synchronisation.
 """
 
 from typing import Callable
@@ -18,6 +21,32 @@ import torch
 
 from lanczos_adjoints_tpu_torch.ops import fused_gram
 from lanczos_adjoints_tpu_torch.utils.precision import requires_float32
+
+
+def cg_fixed_step(num_matvecs: int, /) -> Callable:
+    pcg_solve = pcg_fixed_step(num_matvecs)
+
+    def cg(A: Callable, b, *params):
+        return pcg_solve(A, b, *params, P=lambda v: v)
+
+    return cg
+
+
+def pcg_fixed_step(num_matvecs: int, /) -> Callable:
+    """PCG with a fixed matvec budget: exactly ``num_matvecs`` steps.
+
+    Returns ``pcg(A, b, *params, P) -> (x, info)``, as ``pcg_adaptive``;
+    the info holds ``residual_abs`` and ``residual_rel`` and, as in the
+    JAX package, no ``num_steps``.
+    """
+
+    def pcg_impl(A, b, P):
+        x, r, p, rz = _pcg_start(A, b, P)
+        for _ in range(num_matvecs):
+            x, r, p, rz = _pcg_step(A, P, x, r, p, rz)
+        return x, {"residual_abs": r, "residual_rel": _residual_rel(r, b)}
+
+    return _implicit(pcg_impl)
 
 
 def cg_adaptive(**kwargs) -> Callable:
@@ -37,29 +66,46 @@ def pcg_adaptive(*, atol: float, rtol: float, maxiter: int, miniter: int) -> Cal
     """
 
     def pcg_impl(A, b, P):
-        x = torch.zeros_like(b)
-        r = b - A(x)
-        z = P(r)
-        p, rz, nsteps = z, torch.dot(r, z), 0
+        x, r, p, rz = _pcg_start(A, b, P)
+        nsteps = 0
         while nsteps < maxiter:
             error_rel = r / (atol + torch.abs(x) * rtol)
             too_large = bool(torch.sqrt(torch.mean(error_rel**2)) > 1.0)
             if not (too_large or nsteps < miniter):
                 break
-            Ap = A(p)
-            step = _safe_divide(rz, torch.dot(p, Ap))
-            x = x + step * p
-            r = r - step * Ap
-            z = P(r)
-            rz_new = torch.dot(r, z)
-            p = z + _safe_divide(rz_new, rz) * p
-            rz = rz_new
+            x, r, p, rz = _pcg_step(A, P, x, r, p, rz)
             nsteps += 1
         return x, {
             "residual_abs": r,
             "residual_rel": _residual_rel(r, b),
             "num_steps": torch.tensor(float(nsteps)),
         }
+
+    return _implicit(pcg_impl)
+
+
+def _pcg_start(A, b, P):
+    """PCG's start from ``x = 0``: the iterate, residual, direction and ``<r, P r>``."""
+    x = torch.zeros_like(b)
+    r = b - A(x)
+    z = P(r)
+    return x, r, z, torch.dot(r, z)
+
+
+def _pcg_step(A, P, x, r, p, rz):
+    """One PCG step: the next iterate, residual, direction and ``<r, P r>``."""
+    Ap = A(p)
+    step = _safe_divide(rz, torch.dot(p, Ap))
+    x = x + step * p
+    r = r - step * Ap
+    z = P(r)
+    rz_new = torch.dot(r, z)
+    return x, r, z + _safe_divide(rz_new, rz) * p, rz_new
+
+
+def _implicit(pcg_impl: Callable) -> Callable:
+    """``pcg(A, b, *params, P)``: ``pcg_impl(A, b, P)`` run without a graph,
+    its solution given the implicit gradient of ``_ImplicitSolve``."""
 
     @requires_float32
     def pcg(A: Callable, b, *params, P: Callable):

@@ -219,7 +219,9 @@ def _imports(path):
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted((REPO / "lanczos_adjoints_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 10
+    scripts = sorted((REPO / "scripts").glob("torch_*.py"))
+    assert len(files) > 10 and len(scripts) >= 2
+    files += scripts
     banned = ("jax", "jaxlib", "optax", "lanczos_adjoints_tpu")
     for path in files:
         for name in _imports(path):
