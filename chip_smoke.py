@@ -130,7 +130,23 @@ Phases, in order:
      against the unsharded step (loss 1e-4, gradient 1e-3), launches 8x;
  23. K11's time per launch at n = 2^20, P = 8, 4, 2 and 1, beside its
      bound and traffic, its plain version, K4 on the whole vector and
-     cuSPARSE. The kernels
+     cuSPARSE;
+ 24. the linearised-Laplace drivers (``train.laplace``, no kernel) at the
+     parity MLP of 3,709 parameters, from the JAX drivers' float32 CPU
+     run (its fixture ``laplace_s1.npz``): ``train_map`` from JAX's
+     initial parameters (MAP within 1e-3), ``calibrate`` (3 epochs) and
+     ``calibrate_diag`` (10) from JAX's MAP vector and probes (curves and
+     alphas within 0.5 %), ``compute_metrics`` from JAX's MAP vector and
+     draws (each metric within the larger of 1 % and 10x the JAX
+     package's float32-vs-float64 spread), the committed TPU files
+     printed beside without a gate;
+ 25. ``python -m lanczos_adjoints_tpu_torch.train.laplace callibration``
+     at ``FULL_WIDTH_ARGS`` (3,688,970 parameters, 30 epochs) on the
+     port's own data: finite, the final loss under half the first, one
+     float32 step within 1e-3 (loss) and 1e-2 (d/dlog alpha) of float64,
+     one finite step at rank 50, the time per epoch by CUDA events, a
+     profiled epoch and the peak memory. Phases 24-25 fail on any tensor
+     off the card and on any launch of K1-K11. The kernels
      of every slice, with their numbers, form one JSON line.
 Every profiled run prints the profiler's launch count of each of the
 port's kernels beside the registry's, and flags a kernel whose launches
@@ -144,6 +160,7 @@ import ctypes
 import functools
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2893,6 +2910,269 @@ def phase_timing_halo(slice_run):
     }
 
 
+# The linearised-Laplace slice (train.laplace): held to the JAX drivers'
+# float32 CPU run through its fixture, then run at full width.
+LAPLACE_RANK_WIDE = 50
+TOL_LAPLACE_F64 = {"loss": 1e-3, "grad": 1e-2}
+# Calls that move a result to the host on purpose: the metrics' scores go
+# to numpy for the AUROC.
+HOST_CALLS = ("cpu", "numpy", "item", "tolist", "__float__", "__format__")
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (tuple, list)):
+        for t in tree:
+            yield from _tensors(t)
+    elif isinstance(tree, dict):
+        for t in tree.values():
+            yield from _tensors(t)
+
+
+class _OnCard(torch.overrides.TorchFunctionMode):
+    """Every torch call inside it: counted, and recorded by name where a tensor
+    it takes or gives lies off the card (the host calls of ``HOST_CALLS`` apart)."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls, self.host_calls, self.off_card = 0, 0, {}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.calls += 1
+        name = getattr(func, "__name__", str(func))
+        if name in HOST_CALLS:
+            self.host_calls += 1
+        elif any(not (t.is_cuda or t.is_meta) for t in _tensors((args, kwargs, out))):
+            self.off_card[name] = self.off_card.get(name, 0) + 1
+        return out
+
+    def check(self, label):
+        print(f"  {label}: {self.calls} torch calls, every tensor on the card: {not self.off_card} "
+              f"({self.host_calls} host reads of results)", flush=True)
+        if self.off_card:
+            raise RuntimeError(f"{label}: tensors off the card in {self.off_card}")
+
+
+def _laplace_tpu_file(name):
+    """One of the JAX drivers' committed (TPU) outputs, or None."""
+    from lanczos_adjoints_tpu_torch.train import laplace
+
+    path = laplace.JAX_TPU_RESULTS / name
+    if not path.exists():
+        return None
+    return json.loads(path.read_text()) if path.suffix == ".json" else np.load(path)
+
+
+def _no_kernel_launched(label):
+    from lanczos_adjoints_tpu_torch.ops import native
+
+    launched = {k: c for k, c in native.launch_counts().items() if c}
+    print(f"  {label}: launches of the port's kernels {launched or 'none'} (none expected: no function "
+          f"of this path reaches a Pallas kernel in the JAX package)", flush=True)
+    if launched:
+        raise RuntimeError(f"{label}: unexpected kernel launches {launched}")
+
+
+def phase_slice_laplace():
+    """The linearised-Laplace drivers at the parity MLP (3,709 parameters), from
+    the JAX drivers' float32 CPU run (``train.laplace.FIXTURE``): ``train_map``
+    from JAX's initial parameters, 3 epochs of ``calibrate`` and 10 of
+    ``calibrate_diag`` from JAX's MAP vector and probes, ``compute_metrics``
+    from JAX's MAP vector and draws, each held to that run; the committed
+    TPU files printed beside, without a gate."""
+    from lanczos_adjoints_tpu_torch.models import bnn
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.train import laplace
+
+    fix = laplace.fixture()
+    card = lambda name: torch.tensor(fix[name], device=DEVICE)  # noqa: E731
+    x, y = card("calib_x"), card("calib_y")
+    init, apply = bnn.model_mlp(out_dims=y.shape[-1], activation=torch.tanh)
+    _, unflatten, _ = bnn.vectorize_nn(apply, init(torch.Generator(device=DEVICE).manual_seed(0), x))
+    jax_map = card("calib_map")
+    print(f"[slice-laplace] the JAX drivers' float32 CPU run at {jax_map.shape[0]:,} parameters: MAP within "
+          f"{laplace.TOL_MAP:.0e} (norm), curves and alphas within {laplace.TOL_CURVES:.1%}, metrics within "
+          f"max({laplace.TOL_METRICS_REL:.0%}, {laplace.SPREAD_FACTOR:.0f}x its float32-vs-float64 spread)",
+          flush=True)
+    failures = []
+    native.reset_launches()
+    mode = _OnCard()
+    with mode:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params_map, map_loss = laplace.train_map(apply, card("calib_init"), unflatten, x, y)
+        t_map = time.perf_counter() - t0
+        curve, alpha = laplace.calibrate(apply, unflatten, jax_map, x, y, num_epochs=3,
+                                         probes=card("calib_probes"))
+        t_cal = time.perf_counter() - t0 - t_map
+        curve_d, alpha_d = laplace.calibrate_diag(apply, unflatten, jax_map, x, y, num_epochs=10,
+                                                  probes=card("diag_probes"))
+        t_diag = time.perf_counter() - t0 - t_map - t_cal
+        metrics = laplace.compute_metrics(apply, unflatten, card("metrics_map"), card("metrics_x"),
+                                          card("metrics_y"), card("metrics_x_ood"), key=card("metrics_eps"))
+        torch.cuda.synchronize()
+        t_metrics = time.perf_counter() - t0 - t_map - t_cal - t_diag
+        on_card = params_map.is_cuda and jax_map.is_cuda
+    mode.check("slice-laplace")
+    if not on_card:
+        failures.append("MAP off the card")
+    _no_kernel_launched("slice-laplace")
+    map_err = float(torch.linalg.vector_norm(params_map - jax_map) / torch.linalg.vector_norm(jax_map))
+    print(f"  train_map (Adam 1e-2, 200 steps) from JAX's init: loss {map_loss:.6f} (JAX "
+          f"{float(fix['calib_map_loss']):.6f}), MAP rel err in norm {map_err:.3e} (tol {laplace.TOL_MAP:.0e}); "
+          f"{t_map:.2f} s wall", flush=True)
+    if not map_err <= laplace.TOL_MAP:
+        failures.append("MAP")
+    gaps = {}
+    for label, got, want, want64 in (
+        ("calibrate curve", np.asarray(curve), fix["calib_curve"], fix["calib_curve_f64"]),
+        ("calibrate alpha", np.asarray(alpha), fix["calib_alpha"], fix["calib_alpha_f64"]),
+        ("calibrate_diag curve", np.asarray(curve_d), fix["diag_curve"], None),
+        ("calibrate_diag alpha", np.asarray(alpha_d), fix["diag_alpha"], None),
+    ):
+        gap = float(np.max(np.abs(got / want - 1.0)))
+        gaps[label] = gap
+        beside = "" if want64 is None else f"; JAX float64 run {np.round(want64, 4).tolist()}, gap " \
+            f"{float(np.max(np.abs(got / want64 - 1.0))):.2e}"
+        print(f"  {label}: {np.round(got, 4).tolist()} vs JAX {np.round(want, 4).tolist()}: max rel gap "
+              f"{gap:.2e} (tol {laplace.TOL_CURVES:.1e}){beside}", flush=True)
+        if not gap <= laplace.TOL_CURVES:
+            failures.append(label)
+    print(f"  wall: calibrate 3 epochs {t_cal:.2f} s, calibrate_diag 10 epochs {t_diag:.2f} s, "
+          f"compute_metrics {t_metrics:.2f} s", flush=True)
+    table, tol = laplace.metrics_table(metrics), laplace.metric_tolerances(fix)
+    spread = np.abs(fix["metrics"] - fix["metrics_f64"])
+    for row, name in enumerate(laplace.PREDICTIVES):
+        for col, metric in enumerate(laplace.METRICS):
+            err = abs(table[row, col] - fix["metrics"][row, col])
+            ok = err <= tol[row, col]
+            print(f"  {name} {metric}: {table[row, col]:.6f} vs JAX {fix['metrics'][row, col]:.6f} (|gap| "
+                  f"{err:.2e}, tol {tol[row, col]:.2e}, JAX f32-vs-f64 spread {spread[row, col]:.2e}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"{name} {metric}")
+    tpu = {name: _laplace_tpu_file(name) for name in (
+        "callibration/s1_curve.npy", "callibration/s1_alpha.npy", "callibration_diag/s1_curve.npy",
+        "callibration_diag/s1_alpha.npy", "compute_metrics_lanczos/s1_metrics.json")}
+    print("  the committed TPU files (JAX at the TPU's default matmul precision; no gate): "
+          + "; ".join(f"{name} {np.round(v, 4).tolist() if isinstance(v, np.ndarray) else v}"
+                      for name, v in tpu.items() if v is not None), flush=True)
+    if failures:
+        raise RuntimeError(f"slice-laplace failed: {failures}")
+    return {"map_rel_err": map_err, "gaps": gaps, "metrics": metrics,
+            "seconds": {"train_map": t_map, "calibrate": t_cal, "calibrate_diag": t_diag,
+                        "compute_metrics": t_metrics}}
+
+
+def phase_slice_laplace_full():
+    """``python -m lanczos_adjoints_tpu_torch.train.laplace callibration`` at
+    ``train.laplace.FULL_WIDTH_ARGS`` (the MLP 256 -> 2048 -> 1536 -> 10,
+    3,688,970 parameters, 512 points, 200 MAP epochs, rank 10, 10 probes, 30
+    RMSprop epochs at 0.1) on the port's own data: finite, the final loss under
+    half the first; one float32 step against the same step in float64 (same
+    probes); one step at rank 50; the device's time per epoch (CUDA events),
+    one profiled epoch and the peak memory."""
+    import argparse
+    import tempfile
+
+    from lanczos_adjoints_tpu_torch.models import bnn
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.train import laplace
+    from lanczos_adjoints_tpu_torch.utils.timing import events_ms
+
+    failures = []
+    with tempfile.TemporaryDirectory() as out:
+        args = laplace.build_argparser(argparse.ArgumentParser(), "callibration").parse_args(
+            [*laplace.FULL_WIDTH_ARGS, "--seed", "1", "--device", DEVICE, "--out", out])
+        print(f"[slice-laplace-full] train.laplace callibration {' '.join(laplace.FULL_WIDTH_ARGS)} --seed 1 "
+              f"on the port's numpy data", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launches()
+        mode = _OnCard()
+        with mode:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = laplace.run("callibration", args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            on_card = result["params_map"].is_cuda
+        files = sorted(os.listdir(out))
+    mode.check("slice-laplace-full")
+    _no_kernel_launched("slice-laplace-full")
+    curve = np.asarray(result["curve"])
+    print(f"  {result['n_params']:,} parameters; MAP loss {result['map_loss']:.4f}; curve {curve[0]:.1f} -> "
+          f"{curve[-1]:.1f} over {len(curve)} epochs, alpha {result['alpha']:.5f}; run {wall:.2f} s wall; "
+          f"files {files}", flush=True)
+    committed = _laplace_tpu_file("callibration/s1_p3688970_rank10_curve.npy")
+    if committed is not None:
+        print(f"  the committed JAX run (TPU, its own data; no gate): {committed[0]:.1f} -> {committed[-1]:.1f}, "
+              f"alpha {float(_laplace_tpu_file('callibration/s1_p3688970_rank10_alpha.npy')):.5f}", flush=True)
+    if result["n_params"] != 3_688_970 or not on_card:
+        failures.append(f"n_params {result['n_params']}, on the card {on_card}")
+    if not (np.all(np.isfinite(curve)) and np.isfinite(result["alpha"])):
+        failures.append("non-finite loss or alpha")
+    if not curve[-1] < 0.5 * curve[0]:
+        failures.append(f"final loss {curve[-1]} not under half of the first {curve[0]}")
+
+    apply, unflatten, _init, x, y, _ = laplace.problem(args, "callibration", None)
+    params = result["params_map"]
+    n = params.shape[0]
+    loss = bnn.callibration_loss(apply, unflatten, torch.exp, n, lanczos_rank=args.lanczos_rank,
+                                 slq_num_samples=args.slq_num_samples)
+    generator = torch.Generator(device=DEVICE).manual_seed(2)
+    state = {"log_alpha": torch.zeros((), device=DEVICE)}
+    optimizer = laplace.RMSprop(state["log_alpha"], args.learning_rate)
+
+    def epoch():
+        value, grad = laplace.value_and_grad(loss, state["log_alpha"], params, x, y, generator)
+        state["log_alpha"] = optimizer.update(state["log_alpha"], grad)
+        return float(value)
+
+    epoch()
+    epoch_ms = events_ms(epoch, 3)
+    step_ms = laplace.time_step(args, apply, unflatten, params, x, y)
+    print(f"  one epoch (value_and_grad over 10 probes x rank 10, the RMSprop update, the loss read back): "
+          f"{epoch_ms:.2f} ms on the device (CUDA events, 3 epochs); the driver's --time reading of one "
+          f"value_and_grad {step_ms:.2f} ms", flush=True)
+    profile = _print_profile("one calibration epoch at 3,688,970 parameters", epoch)
+
+    bits = torch.randint(0, 2, (args.slq_num_samples, n), device=DEVICE,
+                         generator=torch.Generator(device=DEVICE).manual_seed(3))
+    probes = (2 * bits - 1).to(params.dtype)
+    zero = torch.zeros((), device=DEVICE)
+    v32, g32 = laplace.value_and_grad(loss, zero, params, x, y, probes)
+    v64, g64 = laplace.value_and_grad(loss, zero.double(), params.double(), x.double(), y.double(),
+                                      probes.double())
+    errs = {"loss": abs(float(v32) / float(v64) - 1.0), "grad": abs(float(g32) / float(g64) - 1.0)}
+    print(f"  one step at log alpha 0, float32 vs float64 (same probes): loss {float(v32):.4f} vs "
+          f"{float(v64):.4f} (rel {errs['loss']:.2e}, tol {TOL_LAPLACE_F64['loss']:.0e}), d/dlog alpha "
+          f"{float(g32):.4f} vs {float(g64):.4f} (rel {errs['grad']:.2e}, tol {TOL_LAPLACE_F64['grad']:.0e})",
+          flush=True)
+    failures += [f"float32 vs float64 {k}" for k, e in errs.items() if not e <= TOL_LAPLACE_F64[k]]
+
+    wide = bnn.callibration_loss(apply, unflatten, torch.exp, n, lanczos_rank=LAPLACE_RANK_WIDE,
+                                 slq_num_samples=args.slq_num_samples)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v50, g50 = laplace.value_and_grad(wide, zero, params, x, y, probes)
+    torch.cuda.synchronize()
+    t50 = time.perf_counter() - t0
+    print(f"  one step at rank {LAPLACE_RANK_WIDE}: loss {float(v50):.4f}, d/dlog alpha {float(g50):.4f}, "
+          f"finite {bool(torch.isfinite(v50) and torch.isfinite(g50))}; {t50:.2f} s wall", flush=True)
+    if not bool(torch.isfinite(v50) and torch.isfinite(g50)):
+        failures.append(f"rank {LAPLACE_RANK_WIDE} step not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak device memory allocated over the phase: {peak:.2f} GiB", flush=True)
+    if failures:
+        raise RuntimeError(f"slice-laplace-full failed: {failures}")
+    return {"curve": curve.tolist(), "alpha": result["alpha"], "epoch_ms": epoch_ms, "step_ms": step_ms,
+            "wall_s": wall,
+            "f64_errs": errs, "rank50_s": t50, "peak_gib": peak,
+            "profile": None if profile is None else {k: profile[k] for k in ("wall_ms", "busy_ms", "top")}}
+
+
 def main() -> int:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2927,6 +3207,8 @@ def main() -> int:
     halo_run = phase_slice_halo()
     phase_slice_mesh(N_TRAIN)
     entries.append(phase_timing_halo(halo_run))
+    phase_slice_laplace()
+    phase_slice_laplace_full()
     main_arnoldi = arnoldi_runs[ARNOLDI_MAIN]["launches"]["fused"]
     for entry in entries:
         # The DIA kernels' launches in the Arnoldi adjoint (main path) and SLQ.

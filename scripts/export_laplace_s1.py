@@ -1,0 +1,238 @@
+"""Export the JAX linearised-Laplace drivers' seed-1 draws and results as a fixture.
+
+Runs the three drivers of ``experiments/applications/linearised_laplace/``
+(``callibration.py --num_epochs 3``, ``callibration_diag.py --num_epochs 10``
+and ``compute_metrics_lanczos.py``, seed 1, the parity MLP of 3,709
+parameters) with the JAX package on the CPU, and writes what the PyTorch
+port needs to be held to them without JAX:
+
+- the data of both drivers (``compute_metrics_lanczos.py`` splits its key
+  five ways, so its ``x`` is not ``callibration.py``'s), the flax initial
+  and MAP parameter vectors;
+- the Rademacher probes of each calibration epoch and the two levels of
+  Hutchinson probes of the diagonal loss, as int8 signs, and the normal
+  draws of ``lanczos_sampler``;
+- the drivers' outputs: both calibration curves and alphas, the MAP and
+  Laplace metrics;
+- the same calibration loop (``callibration.py``'s RMSprop over the SLQ
+  loss) and the same metrics run again in float64 from the float32 MAP
+  vector and the same probes and draws: the JAX package's own
+  float32-vs-float64 spread, and a reference closer to exact arithmetic
+  (the float32 run's loss is 6e-4 from it at the first epoch).
+
+The drivers run unmodified (``runpy``), with their results directory
+pointed at a temporary one; the draws are taken again under the drivers'
+own key splits, and the float32 metrics recomputed here must equal the
+driver's.
+
+Run from the repository root::
+
+    python scripts/export_laplace_s1.py [--out PATH]
+
+The default ``--out`` is ``lanczos_adjoints_tpu_torch/train/laplace_s1.npz``.
+"""
+
+import argparse
+import importlib.util
+import json
+import runpy
+import sys
+import tempfile
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parents[1]
+DRIVERS = REPO / "experiments/applications/linearised_laplace"
+FIXTURE = REPO / "lanczos_adjoints_tpu_torch/train/laplace_s1.npz"
+METRICS = ("nll", "accuracy", "confidence", "ece", "ood_auroc")
+PREDICTIVES = ("map", "laplace")
+SEED = 1
+CALIB_EPOCHS = 3
+DIAG_EPOCHS = 10
+
+
+def _driver(name):
+    spec = importlib.util.spec_from_file_location(f"_laplace_{name}", DRIVERS / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _run_driver(name, *argv):
+    """Run a driver as ``__main__`` with its results in a temporary directory."""
+    from lanczos_adjoints_tpu.utils import exp_util
+
+    with tempfile.TemporaryDirectory() as out, mock.patch.object(
+        exp_util, "matching_directory", lambda *_a, **_k: out + "/"
+    ), mock.patch.object(sys, "argv", [f"{name}.py", *argv]):
+        runpy.run_path(str(DRIVERS / f"{name}.py"), run_name="__main__")
+        return {p.name: (json.loads(p.read_text()) if p.suffix == ".json" else np.load(p))
+                for p in Path(out).iterdir()}
+
+
+def _signs(probes):
+    return np.asarray(probes).astype(np.int8)
+
+
+def _calibration_curve(jax, jnp, bnn, optax, apply, unflatten, map_vec, x, y, probes):
+    """``callibration.py``'s loop over the given per-epoch probes: ``(curve, alpha)``.
+
+    The probes travel in the key's place: ``jax.random.rademacher`` is
+    replaced by a cast of its key while the loss is traced.
+    """
+    loss = bnn.callibration_loss(apply, unflatten, jnp.exp, len(map_vec))
+    with mock.patch.object(jax.random, "rademacher", lambda key, _shape, dtype: key.astype(dtype)):
+        value_and_grad = jax.jit(jax.value_and_grad(loss, argnums=0)).lower(
+            jnp.asarray(0.0, map_vec.dtype), map_vec, x, y, jnp.asarray(probes[0], map_vec.dtype)).compile()
+    log_alpha = jnp.asarray(0.0, map_vec.dtype)
+    optimizer = optax.rmsprop(1e-1)
+    state = optimizer.init(log_alpha)
+    curve = []
+    for epoch_probes in probes:
+        value, grad = value_and_grad(log_alpha, map_vec, x, y, jnp.asarray(epoch_probes, map_vec.dtype))
+        updates, state = optimizer.update(grad, state)
+        log_alpha = optax.apply_updates(log_alpha, updates)
+        curve.append(float(value))
+    return np.asarray(curve), float(jnp.exp(log_alpha))
+
+
+def _metrics(jnp, jax, bnn, auroc, apply, unflatten, map_vec, x, y, x_ood, eps, *, rank=20, alpha=1.0):
+    """``compute_metrics_lanczos.py``'s metrics from a MAP vector and the sampler's draws."""
+    gvp = bnn.ggn_vp_parallel(loss_single=bnn.loss_training_cross_entropy_single,
+                              model_fun=apply, param_unflatten=unflatten)
+
+    def ggn_vp(v):
+        return jax.flatten_util.ravel_pytree(gvp(v, map_vec, x, y))[0] + alpha * v
+
+    with mock.patch.object(jax.random, "normal", lambda *_a, **_k: eps):
+        samples = bnn.lanczos_sampler(ggn_vp=ggn_vp, num_samples=eps.shape[0], lanczos_rank=rank,
+                                      key=None, params_vec=map_vec)
+
+    def predictive_probs(sample_vecs, inputs):
+        return jnp.mean(jax.vmap(lambda p: jax.nn.softmax(apply(unflatten(p), inputs), axis=-1))(
+            sample_vecs), axis=0)
+
+    table = np.zeros((len(PREDICTIVES), len(METRICS)))
+    for row, name in enumerate(PREDICTIVES):
+        if name == "map":
+            probs = jax.nn.softmax(apply(unflatten(map_vec), x), axis=-1)
+            probs_ood = jax.nn.softmax(apply(unflatten(map_vec), x_ood), axis=-1)
+        else:
+            probs, probs_ood = predictive_probs(samples, x), predictive_probs(samples, x_ood)
+        nll = bnn.metric_nll(logits=jnp.log(probs + 1e-12), labels_hot=y, sum_or_mean_fun=jnp.mean)
+        table[row] = (
+            float(nll), float(bnn.metric_accuracy(probs=probs, labels_hot=y)),
+            float(bnn.metric_confidence(probs=probs)),
+            float(bnn.metric_ece(probs=probs, labels_hot=y, num_bins=10)[0]),
+            auroc(np.asarray(jnp.max(probs, axis=-1)), np.asarray(jnp.max(probs_ood, axis=-1))),
+        )
+    return table
+
+
+def export() -> dict:
+    """Every array of the fixture, from the JAX drivers run on the CPU."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import jax.flatten_util
+    import jax.numpy as jnp
+    import optax
+
+    from lanczos_adjoints_tpu.models import bnn
+    from lanczos_adjoints_tpu.trace.hutchinson import sampler_rademacher
+
+    sys.path.insert(0, str(DRIVERS))  # callibration_diag.py imports callibration
+    try:
+        calib = _driver("callibration")
+        metrics_driver = _driver("compute_metrics_lanczos")
+        runs = {
+            "calib": _run_driver("callibration", "--seed", str(SEED), "--num_epochs", str(CALIB_EPOCHS),
+                                 "--cpu"),
+            "diag": _run_driver("callibration_diag", "--seed", str(SEED), "--num_epochs", str(DIAG_EPOCHS)),
+            "metrics": _run_driver("compute_metrics_lanczos", "--seed", str(SEED), "--cpu"),
+        }
+    finally:
+        sys.path.remove(str(DRIVERS))
+    out = {}
+
+    # callibration.py (and callibration_diag.py: the same key splits and defaults).
+    init, apply = bnn.model_mlp(out_dims=4, activation=jnp.tanh, hidden=calib._parse_hidden(""))
+    key = jax.random.PRNGKey(SEED)
+    key, k_data, k_init = jax.random.split(key, 3)
+    x, y = calib.make_data(k_data)
+    params_vec, unflatten, _ = bnn.vectorize_nn(apply, init(k_init, x))
+    map_vec, map_loss = calib.train_map(key, apply, params_vec, unflatten, x, y, num_epochs=200)
+    n_params = len(params_vec)
+    sampler = sampler_rademacher(jnp.ones((n_params,), dtype=float), num=10)
+    probes = []
+    for _ in range(CALIB_EPOCHS):
+        key, subkey = jax.random.split(key)
+        probes.append(sampler(subkey))
+    diag_probes = [
+        [jax.random.rademacher(k, (n_params,), dtype=params_vec.dtype) for k in jax.random.split(level, 20)]
+        for level in jax.random.split(jax.random.PRNGKey(0), 2)
+    ]
+    curve32, _ = _calibration_curve(jax, jnp, bnn, optax, apply, unflatten, map_vec, x, y, _signs(probes))
+    if not np.allclose(curve32, runs["calib"][f"s{SEED}_curve.npy"], rtol=1e-6):
+        msg = f"the replicated calibration loop {curve32} differs from the driver's"
+        raise RuntimeError(msg)
+    with jax.enable_x64(True):
+        f64 = lambda a: jnp.asarray(np.asarray(a), jnp.float64)  # noqa: E731
+        curve64, alpha64 = _calibration_curve(jax, jnp, bnn, optax, apply, unflatten, f64(map_vec), f64(x),
+                                              f64(y), _signs(probes))
+    out.update(
+        calib_curve_f64=curve64, calib_alpha_f64=np.asarray(alpha64),
+        calib_x=np.asarray(x), calib_y=np.asarray(y), calib_init=np.asarray(params_vec),
+        calib_map=np.asarray(map_vec), calib_map_loss=np.asarray(map_loss),
+        calib_probes=_signs(probes), calib_curve=runs["calib"][f"s{SEED}_curve.npy"],
+        calib_alpha=runs["calib"][f"s{SEED}_alpha.npy"],
+        diag_probes=_signs(diag_probes), diag_curve=runs["diag"][f"s{SEED}_curve.npy"],
+        diag_alpha=runs["diag"][f"s{SEED}_alpha.npy"],
+    )
+
+    # compute_metrics_lanczos.py: its own five-way split.
+    key = jax.random.PRNGKey(SEED)
+    key, k_data, k_init, k_ood, k_sample = jax.random.split(key, 5)
+    x, y = calib.make_data(k_data)
+    x_ood = 4.0 * jax.random.normal(k_ood, x.shape)
+    params_vec, unflatten, _ = bnn.vectorize_nn(apply, init(k_init, x))
+    map_vec, _ = calib.train_map(key, apply, params_vec, unflatten, x, y, num_epochs=200)
+    eps = jax.random.normal(k_sample, (16, n_params))
+    table = _metrics(jnp, jax, bnn, metrics_driver.auroc, apply, unflatten, map_vec, x, y, x_ood, eps)
+    driver_table = np.asarray([[runs["metrics"][f"s{SEED}_metrics.json"][p][m] for m in METRICS]
+                               for p in PREDICTIVES])
+    if not np.allclose(table, driver_table, rtol=1e-6, atol=1e-7):
+        msg = f"recomputed metrics {table} differ from the driver's {driver_table}"
+        raise RuntimeError(msg)
+    with jax.enable_x64(True):
+        table64 = _metrics(jnp, jax, bnn, metrics_driver.auroc, apply, unflatten, f64(map_vec), f64(x), f64(y),
+                           f64(x_ood), f64(eps))
+    out.update(
+        metrics_x=np.asarray(x), metrics_y=np.asarray(y), metrics_x_ood=np.asarray(x_ood),
+        metrics_init=np.asarray(params_vec), metrics_map=np.asarray(map_vec), metrics_eps=np.asarray(eps),
+        metrics=driver_table, metrics_f64=table64,
+    )
+    return out
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", type=Path, default=FIXTURE)
+    args = parser.parse_args(argv)
+    arrays = export()
+    np.savez_compressed(args.out, **arrays)
+    spread = np.abs(arrays["metrics"] - arrays["metrics_f64"])
+    print(f"wrote {args.out} ({args.out.stat().st_size} bytes)")
+    print(f"calibration curve {arrays['calib_curve']}, alpha {float(arrays['calib_alpha']):.6f}; in float64 "
+          f"{arrays['calib_curve_f64']}, alpha {float(arrays['calib_alpha_f64']):.6f}")
+    print(f"diagonal curve {arrays['diag_curve'][[0, -1]]}, alpha {float(arrays['diag_alpha']):.6f}")
+    for row, name in enumerate(PREDICTIVES):
+        print(name, dict(zip(METRICS, arrays["metrics"][row].round(6))),
+              "f32-vs-f64 spread", dict(zip(METRICS, spread[row])))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
