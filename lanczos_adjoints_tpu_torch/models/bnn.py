@@ -624,28 +624,37 @@ def sampler_lanczos(*, ggn_fun, num, lanczos_rank):
     return sample
 
 
-def lanczos_sampler(*, ggn_vp, num_samples, lanczos_rank, key, params_vec):
+def lanczos_sampler(*, ggn_vp, num_samples, lanczos_rank, key, params_vec, signs=None):
     """Matrix-free posterior sampler with eigenvalue clamping.
 
-    ``key``: a generator, or the ``(num_samples, P)`` normal draws. The
-    Ritz vectors' signs are fixed (``_fixed_signs``); the JAX package
-    leaves them to its eigh, so a sample matches JAX's up to the sign of
-    its move along each Ritz vector.
+    ``key``: a generator, or the ``(num_samples, P)`` normal draws. A
+    sample moves along each Ritz vector by its own draw, so it depends on
+    the vectors' signs, which eigh leaves to its LAPACK or cuSOLVER
+    build. They are fixed (``_fixed_signs``: the largest-magnitude entry
+    positive), then multiplied by ``signs``, the ``(num_samples,
+    lanczos_rank)`` +-1 of another run relative to that convention (e.g.
+    the JAX package's, ``laplace_s1.npz``), given beside its draws.
     """
     eps = _draw(key, (num_samples, *params_vec.shape), params_vec, "normal")
+    if signs is None:
+        signs = torch.ones((num_samples, lanczos_rank), dtype=params_vec.dtype, device=params_vec.device)
+    signs = torch.as_tensor(signs, device=params_vec.device).to(params_vec.dtype)
+    if signs.shape != (num_samples, lanczos_rank):
+        msg = f"signs of shape {tuple(signs.shape)}, not {(num_samples, lanczos_rank)}"
+        raise ValueError(msg)
     factorise = lanczos.tridiag(ggn_vp, lanczos_rank, reortho="full")
 
-    def posterior_sample(single):
+    def posterior_sample(single, sign):
         (Q, tridiag_), _ = factorise(single)
         w, V = torch.linalg.eigh(_dense_tridiag(*tridiag_))
-        eigvecs = Q.T @ _fixed_signs(V)
+        eigvecs = Q.T @ (_fixed_signs(V) * sign)
         small = w < 1e-9
         eigvals = torch.where(small, torch.ones_like(w), w)
         inv_eigvals = torch.where(small, torch.zeros_like(w), 1.0 / eigvals)
         coeffs = torch.sqrt(inv_eigvals) * single[:lanczos_rank]
         return params_vec + eigvecs @ coeffs
 
-    return torch.stack([posterior_sample(single) for single in eps])
+    return torch.stack([posterior_sample(single, sign) for single, sign in zip(eps, signs)])
 
 
 def _fixed_signs(V):

@@ -111,13 +111,23 @@ def constraint_greater_than(minval, /) -> Callable:
 
 
 def _scaled_sq_distance(x, y, lengthscale):
-    """|x - y|^2 / lengthscale^2 via the expanded form, as the JAX package."""
+    """|x - y|^2 / lengthscale^2 via the expanded form, as the JAX package.
+
+    Each of the three dots is the same ``einsum``. On broadcast row and
+    column batches (``(r, 1, d)`` against ``(1, c, d)``) the cross term
+    runs as a matrix product and never forms the ``(r, c, d)`` products,
+    which at the dense policies' block sizes would not fit the card. Where
+    ``x`` is ``y`` (the diagonal ``k(x_i, x_i)`` the pivoted Cholesky
+    starts from) the three are computed alike, so the distance is exactly
+    0 and the diagonal exactly equal on every row, as in the JAX package:
+    the first block of pivots is then the first rows, not rounding noise.
+    """
     x = x / lengthscale
     y = y / lengthscale
     sq = (
-        torch.sum(x * x, dim=-1)
-        + torch.sum(y * y, dim=-1)
-        - 2 * torch.sum(x * y, dim=-1)
+        torch.einsum("...i,...i->...", x, x)
+        + torch.einsum("...i,...i->...", y, y)
+        - 2 * torch.einsum("...i,...i->...", x, y)
     )
     return torch.clamp(sq, min=0.0)
 

@@ -1,6 +1,6 @@
-"""Pivoted partial Cholesky, sequential and blocked, and the Woodbury preconditioner.
+"""Partial Cholesky (plain, pivoted, pivoted in blocks) and the Woodbury preconditioner.
 
-Counterpart of ``woodbury_solve``, ``preconditioner``,
+Counterpart of ``woodbury_solve``, ``preconditioner``, ``cholesky_partial``,
 ``cholesky_partial_pivot`` and ``cholesky_partial_pivot_blocked`` in
 ``lanczos_adjoints_tpu/precond/low_rank.py``. The factor is built under
 ``torch.no_grad()``, and both the factor and the solve refuse to be
@@ -83,6 +83,28 @@ def _refusing_grad(cholesky_fn, lazy_kernel, n):
     if torch.is_grad_enabled() and any(p.requires_grad for p in params):
         factor = _RefuseGrad.apply(factor, *params)
     return factor, info
+
+
+def cholesky_partial(*, rank: int) -> Callable:
+    """Rank-``rank`` partial Cholesky of a lazily indexed matrix, without pivoting:
+    column ``i`` is the Schur complement's column ``i``, over the root of its diagonal."""
+
+    def cholesky(lazy_kernel: Callable, n: int, /):
+        _check_rank(rank, n)
+        return _refusing_grad(_cholesky, lazy_kernel, n)
+
+    def _cholesky(element: Callable, n: int):
+        all_idx = torch.arange(n)
+        L = None
+        for i in range(rank):
+            col = element(all_idx, torch.tensor(i))
+            if L is None:
+                L = torch.zeros((n, rank), dtype=col.dtype, device=col.device)
+            pivot = torch.sqrt(col[i] - torch.dot(L[i], L[i]))
+            L[:, i] = (col - L @ L[i, :]) / pivot
+        return L, {}
+
+    return cholesky
 
 
 def cholesky_partial_pivot(*, rank: int) -> Callable:

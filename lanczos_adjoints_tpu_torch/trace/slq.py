@@ -84,7 +84,7 @@ def krylov_logdet_slq(
         if num_batches == 1:
             return estimate(key, *params), {"std_abs": 0.0, "std_rel": 0.0}
         mean, std = _batches(estimate, key, params, num_batches)
-        return mean, {"std_abs": std, "std_rel": std / torch.abs(mean)}
+        return mean, {"std_abs": std.detach(), "std_rel": (std / torch.abs(mean)).detach()}
 
     return logdet
 

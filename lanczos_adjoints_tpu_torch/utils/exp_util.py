@@ -1,10 +1,15 @@
-"""MatrixMarket reading and SuiteSparse loading for the sparse operators.
+"""Experiment utilities: test matrices, random trees, directories, MatrixMarket
+reading and SuiteSparse loading for the sparse operators, spy plots.
 
-Counterpart of ``mtx_read`` and ``suite_sparse_load`` in
-``lanczos_adjoints_tpu/utils/exp_util.py``: ``scipy.io.mmread`` when scipy
-is installed, a numpy body parser otherwise (the JAX package's C parser
+Counterpart of ``lanczos_adjoints_tpu/utils/exp_util.py``: ``hilbert``,
+``tree_random_like`` (its draws from a ``torch.Generator``),
+``matching_directory``, ``mtx_read``, ``suite_sparse_load`` and
+``plt_spy_coo``. ``mtx_read`` uses ``scipy.io.mmread`` when scipy is
+installed, a numpy body parser otherwise (the JAX package's C parser
 belongs to that package and is not used). Symmetric files are expanded to
 full storage; ``.gz`` and ``.tar.gz`` containers are read transparently.
+``suite_sparse_download`` and ``uci_dataset_mlrepo`` need the network and
+are not ported.
 """
 
 import gzip
@@ -12,8 +17,81 @@ import os
 import tarfile
 
 import numpy as np
+import torch
 
 from lanczos_adjoints_tpu_torch.ops import sparse
+
+
+def hilbert(ndim: int, /):
+    """The Hilbert matrix: an ill-conditioned SPD test matrix."""
+    a = torch.arange(ndim)
+    return 1.0 / (1.0 + a[:, None] + a[None, :])
+
+
+def _flatten(tree):
+    """``(leaves, rebuild)`` of a tensor or a nested dict, list or tuple of them,
+    dict keys sorted, as ``jax.flatten_util.ravel_pytree`` orders them."""
+    if isinstance(tree, torch.Tensor):
+        return [tree], lambda leaves: leaves[0]
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [_flatten(tree[key]) for key in keys]
+    elif isinstance(tree, (list, tuple)):
+        keys = None
+        parts = [_flatten(item) for item in tree]
+    else:
+        msg = f"a tree of tensors, not {type(tree).__name__}"
+        raise TypeError(msg)
+    counts = [len(leaves) for leaves, _ in parts]
+
+    def rebuild(leaves):
+        items, start = [], 0
+        for (_, sub), count in zip(parts, counts):
+            items.append(sub(leaves[start : start + count]))
+            start += count
+        return dict(zip(keys, items)) if keys is not None else type(tree)(items)
+
+    return [leaf for leaves, _ in parts for leaf in leaves], rebuild
+
+
+def tree_random_like(generator: torch.Generator, tree, /):
+    """A tree shaped like ``tree`` of standard-normal values, drawn from ``generator``
+    as one flat vector in ``ravel_pytree``'s order."""
+    leaves, rebuild = _flatten(tree)
+    size = sum(leaf.numel() for leaf in leaves)
+    dtype = leaves[0].dtype if leaves else torch.float32
+    flat = torch.randn((size,), generator=generator, dtype=dtype, device=generator.device)
+    out, start = [], 0
+    for leaf in leaves:
+        out.append(flat[start : start + leaf.numel()].reshape(leaf.shape).to(leaf.device))
+        start += leaf.numel()
+    return rebuild(out)
+
+
+def matching_directory(file: str, where: str, /, *, replace: str = "experiments/"):
+    """Mirror an experiment script's path into ``results/``, ``figures/`` or ``data/``.
+
+    ``matching_directory(__file__, "results/")`` maps
+    ``.../experiments/foo/bar.py`` to ``.../results/foo/bar/``.
+    """
+    if where not in ("results/", "figures/", "data/"):
+        msg = f"where={where!r} not in ('results/', 'figures/', 'data/')"
+        raise ValueError(msg)
+    directory = os.path.dirname(os.path.abspath(file))
+    basename = os.path.splitext(os.path.basename(file))[0]
+    if replace not in directory:
+        msg = f"{replace!r} not part of {directory!r}"
+        raise ValueError(msg)
+    return directory.replace(replace, where) + f"/{basename}/"
+
+
+def plt_spy_coo(ax, rows, cols, /, *, shape, markersize=1.0, color="black"):
+    """Sparsity ("spy") plot of a COO pattern onto a matplotlib axis."""
+    ax.scatter(cols, rows, s=markersize, c=color, marker="s", linewidths=0)
+    ax.set_xlim(-0.5, shape[1] - 0.5)
+    ax.set_ylim(shape[0] - 0.5, -0.5)
+    ax.set_aspect("equal")
+    return ax
 
 
 def mtx_read(path: str, /):

@@ -1,8 +1,48 @@
-"""Operators built in the repository, for tests, smoke runs and benchmarks."""
+"""Test matrices and assertions, and operators built in the repository, for tests,
+smoke runs and benchmarks.
+
+The first four functions are the counterparts of
+``lanczos_adjoints_tpu/utils/test_util.py``. Their draws come from the
+``torch.Generator`` the caller passes, so the matrices have the JAX
+package's spectra, not its bases.
+"""
 
 import numpy as np
+import torch
 
 from lanczos_adjoints_tpu_torch.ops import sparse
+
+
+def symmetric_matrix_from_eigenvalues(eigvals, /, *, generator: torch.Generator):
+    """A symmetric matrix with the eigenvalues ``eigvals``, on a random orthogonal basis."""
+    (n,) = eigvals.shape
+    draw = torch.randn((n, n), generator=generator, dtype=eigvals.dtype, device=generator.device)
+    basis, _ = torch.linalg.qr(draw.to(eigvals.device))
+    return (basis * eigvals[None, :]) @ basis.T
+
+
+def asymmetric_matrix_from_eigenvalues(eigvals, /, *, generator: torch.Generator):
+    """A diagonalisable nonsymmetric matrix with the spectrum ``eigvals``."""
+    (n,) = eigvals.shape
+    draw = torch.randn((n, n), generator=generator, dtype=eigvals.dtype, device=generator.device)
+    basis = draw.to(eigvals.device) + n * torch.eye(n, dtype=eigvals.dtype, device=eigvals.device)
+    return basis @ torch.diag(eigvals) @ torch.linalg.inv(basis)
+
+
+def assert_columns_orthonormal(Q, /, *, atol=1e-5):
+    """Assert that the columns of ``Q`` are orthonormal."""
+    _, k = Q.shape
+    gram = Q.T.conj() @ Q
+    assert torch.allclose(gram, torch.eye(k, dtype=gram.dtype, device=gram.device), atol=atol), gram
+
+
+def assert_allclose(a, b, /, *, atol=None, rtol=None):
+    """``torch.allclose`` with the square root of the common dtype's eps as default tolerances."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    tol = float(torch.finfo(torch.result_type(a, b)).eps) ** 0.5
+    atol = tol if atol is None else atol
+    rtol = tol if rtol is None else rtol
+    assert torch.allclose(a, b.to(a.dtype), atol=atol, rtol=rtol), (a, b)
 
 
 def laplacian_2d(m: int) -> sparse.CSRMatrix:

@@ -1,7 +1,11 @@
-"""Kernel and call timing on the card: CUDA events and the profiler's kernel times."""
+"""Kernel and call timing on the card: CUDA events, the profiler's kernel times, and
+the JAX package's ``slope_time``, ``profile_to`` and ``wallclock_time``."""
 
+import contextlib
+import os
 import time
 
+import numpy as np
 import torch
 
 
@@ -68,3 +72,145 @@ def launch_report(kernels, launched, symbols):
             report[symbol] = (seen, count)
     mismatches = sorted(s for s, (seen, count) in report.items() if seen != count)
     return report, mismatches
+
+
+def _leaves(tree):
+    """The tensors of a tensor, or of a (nested) tuple, list or dict of them, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in _leaves(tree[key])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for item in tree for leaf in _leaves(item)]
+    return []
+
+
+def _sync(*trees):
+    """Wait for the card if any tensor of ``trees`` lives on one."""
+    if any(leaf.is_cuda for tree in trees for leaf in _leaves(tree)):
+        torch.cuda.synchronize()
+
+
+def slope_time(
+    fn,
+    *args,
+    reps: int = 8,
+    outer: int = 5,
+    feedback_scale: float = 1e-12,
+    min_window: float = 5e-3,
+    max_reps: int = 4096,
+    budget_s: float = 120.0,
+    return_info: bool = False,
+):
+    """Seconds per evaluation of ``fn(*args)``, from the slope between ``reps`` chained calls and one.
+
+    Counterpart of ``lanczos_adjoints_tpu/utils/timing.py::slope_time``,
+    with its escalation, budget and fallback rules: each run of ``reps``
+    calls feeds ``feedback_scale`` times its output back into the first
+    argument (so no call can be skipped), the device is synchronised
+    before each clock reading, and the per-call time is the difference of
+    the medians over ``outer`` runs, divided by ``reps - 1``. A window
+    below ``min_window`` escalates ``reps`` eightfold while the cost model
+    says the next run fits ``budget_s``; if not even two calls fit, one
+    call's wall time is returned, flagged ``fallback_wallclock``.
+    ``return_info=True`` also returns ``{"resolved", "window_s", "reps",
+    "budget_exhausted", "fallback_wallclock"}``.
+    """
+    import warnings
+
+    first, *rest = args
+
+    def repeated(count):
+        x, acc = first, torch.zeros((), dtype=first.dtype, device=first.device)
+        for _ in range(count):
+            out_flat = torch.cat([leaf.reshape(-1) for leaf in _leaves(fn(x, *rest))])
+            feedback = out_flat[: first.numel()]
+            feedback = (feedback.reshape(first.shape) if feedback.numel() == first.numel()
+                        else torch.zeros_like(first))
+            x = x + feedback_scale * feedback
+            acc = acc + torch.sum(out_flat)
+        return acc
+
+    def timed(count):
+        _sync(args)
+        t0 = time.perf_counter()
+        _sync(repeated(count))
+        return time.perf_counter() - t0
+
+    repeated(1)  # warm-up
+    t_start = time.perf_counter()
+    t_single = max(timed(1), 1e-9)
+
+    def remaining():
+        return budget_s - (time.perf_counter() - t_start)
+
+    per_est = t_single
+
+    def affordable(count):
+        return (outer + 1) * (t_single + count * per_est) + outer * t_single <= remaining()
+
+    def measure(count):
+        repeated(count)
+        t_many, t_one = [], []
+        for _ in range(outer):
+            t_many.append(timed(count))
+            t_one.append(timed(1))
+        window = float(np.median(t_many)) - float(np.median(t_one))
+        return window / (count - 1), window
+
+    budget_exhausted = fallback = False
+    if not affordable(2):
+        per_iter, window, reps = t_single, 0.0, 1
+        budget_exhausted = fallback = True
+    else:
+        reps = max(2, reps)
+        while reps > 2 and not affordable(reps):
+            reps //= 2
+        per_iter, window = measure(reps)
+        per_est = max(per_iter, 1e-9)
+        while window < min_window and reps < max_reps:
+            next_reps = min(max_reps, reps * 8)
+            while next_reps > reps and not affordable(next_reps):
+                next_reps //= 2
+            if next_reps <= reps:
+                budget_exhausted = True
+                break
+            reps = next_reps
+            per_iter, window = measure(reps)
+            per_est = max(per_iter, 1e-9)
+    if window < min_window:
+        why = "budget exhausted" if budget_exhausted else "slope unreliable"
+        warnings.warn(f"measurement window {window * 1e3:.2f} ms stayed below {min_window * 1e3:.0f} ms at "
+                      f"reps={reps}; {why}", stacklevel=2)
+    if return_info:
+        return per_iter, {"resolved": bool(window >= min_window), "window_s": float(window), "reps": int(reps),
+                          "budget_exhausted": budget_exhausted, "fallback_wallclock": fallback}
+    return per_iter
+
+
+@contextlib.contextmanager
+def profile_to(log_dir: str):
+    """Trace the block with ``torch.profiler`` (the card's kernels too, where one is
+    present) into ``{log_dir}/trace.json``, a Chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def wallclock_time(fn, *args, repeats: int = 5) -> float:
+    """Median host seconds of ``fn(*args)`` over ``repeats`` calls after one warm-up,
+    each ended by a synchronise where its output lives on the card."""
+    _sync(fn(*args))
+    times = []
+    for _ in range(repeats):
+        _sync(args)
+        t0 = time.perf_counter()
+        _sync(fn(*args))
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))

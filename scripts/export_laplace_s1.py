@@ -14,6 +14,12 @@ port needs to be held to them without JAX:
   draws of ``lanczos_sampler``;
 - the drivers' outputs: both calibration curves and alphas, the MAP and
   Laplace metrics;
+- the sign of each Ritz vector of each of ``lanczos_sampler``'s samples
+  (``(num_samples, lanczos_rank)``, int8), relative to the port's
+  convention (``models/bnn.py::_fixed_signs``: the largest-magnitude entry
+  positive), and each sample's Ritz values, for the float32 run and the
+  float64 one: eigh leaves the signs to its LAPACK build, and a sample
+  moves along each Ritz vector by its own draw;
 - the same calibration loop (``callibration.py``'s RMSprop over the SLQ
   loss) and the same metrics run again in float64 from the float32 MAP
   vector and the same probes and draws: the JAX package's own
@@ -98,8 +104,33 @@ def _calibration_curve(jax, jnp, bnn, optax, apply, unflatten, map_vec, x, y, pr
     return np.asarray(curve), float(jnp.exp(log_alpha))
 
 
+def _ritz(jnp, jax, bnn, ggn_vp, eps, rank, map_vec, samples):
+    """The sampler's Ritz values and the signs of its Ritz vectors, relative to
+    the largest-magnitude entry of each (the port's ``_fixed_signs``).
+
+    The decomposition of ``bnn.lanczos_sampler`` again, under the same
+    ``vmap``; the samples rebuilt from it must equal the sampler's.
+    """
+    from lanczos_adjoints_tpu.krylov import lanczos
+
+    def decompose(single):
+        (q, tridiag_), _ = lanczos.tridiag(ggn_vp, rank, reortho="full")(single)
+        w, v = jnp.linalg.eigh(bnn._dense_tridiag(*tridiag_))
+        inv_sqrt = jnp.sqrt(jnp.where(w < 1e-9, 0.0, 1.0 / jnp.where(w < 1e-9, 1.0, w)))
+        return w, v, map_vec + (q.T @ v) @ (inv_sqrt * single[:rank])
+
+    w, v, rebuilt = jax.vmap(decompose)(eps)
+    np.testing.assert_allclose(np.asarray(rebuilt), np.asarray(samples), rtol=0, atol=1e-6,
+                               err_msg="the rebuilt samples differ from lanczos_sampler's")
+    v = np.asarray(v)
+    rows = np.argmax(np.abs(v), axis=1)
+    signs = np.sign(np.take_along_axis(v, rows[:, None, :], axis=1)[:, 0, :])
+    return np.asarray(w), np.where(signs == 0, 1, signs).astype(np.int8)
+
+
 def _metrics(jnp, jax, bnn, auroc, apply, unflatten, map_vec, x, y, x_ood, eps, *, rank=20, alpha=1.0):
-    """``compute_metrics_lanczos.py``'s metrics from a MAP vector and the sampler's draws."""
+    """``compute_metrics_lanczos.py``'s metrics from a MAP vector and the sampler's draws:
+    ``(table, ritz_values, ritz_signs)``."""
     gvp = bnn.ggn_vp_parallel(loss_single=bnn.loss_training_cross_entropy_single,
                               model_fun=apply, param_unflatten=unflatten)
 
@@ -109,6 +140,7 @@ def _metrics(jnp, jax, bnn, auroc, apply, unflatten, map_vec, x, y, x_ood, eps, 
     with mock.patch.object(jax.random, "normal", lambda *_a, **_k: eps):
         samples = bnn.lanczos_sampler(ggn_vp=ggn_vp, num_samples=eps.shape[0], lanczos_rank=rank,
                                       key=None, params_vec=map_vec)
+    ritz_values, ritz_signs = _ritz(jnp, jax, bnn, ggn_vp, eps, rank, map_vec, samples)
 
     def predictive_probs(sample_vecs, inputs):
         return jnp.mean(jax.vmap(lambda p: jax.nn.softmax(apply(unflatten(p), inputs), axis=-1))(
@@ -128,11 +160,13 @@ def _metrics(jnp, jax, bnn, auroc, apply, unflatten, map_vec, x, y, x_ood, eps, 
             float(bnn.metric_ece(probs=probs, labels_hot=y, num_bins=10)[0]),
             auroc(np.asarray(jnp.max(probs, axis=-1)), np.asarray(jnp.max(probs_ood, axis=-1))),
         )
-    return table
+    return table, ritz_values, ritz_signs
 
 
 def export() -> dict:
     """Every array of the fixture, from the JAX drivers run on the CPU."""
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -200,19 +234,21 @@ def export() -> dict:
     params_vec, unflatten, _ = bnn.vectorize_nn(apply, init(k_init, x))
     map_vec, _ = calib.train_map(key, apply, params_vec, unflatten, x, y, num_epochs=200)
     eps = jax.random.normal(k_sample, (16, n_params))
-    table = _metrics(jnp, jax, bnn, metrics_driver.auroc, apply, unflatten, map_vec, x, y, x_ood, eps)
+    table, ritz, signs = _metrics(jnp, jax, bnn, metrics_driver.auroc, apply, unflatten, map_vec, x, y, x_ood,
+                                  eps)
     driver_table = np.asarray([[runs["metrics"][f"s{SEED}_metrics.json"][p][m] for m in METRICS]
                                for p in PREDICTIVES])
     if not np.allclose(table, driver_table, rtol=1e-6, atol=1e-7):
         msg = f"recomputed metrics {table} differ from the driver's {driver_table}"
         raise RuntimeError(msg)
     with jax.enable_x64(True):
-        table64 = _metrics(jnp, jax, bnn, metrics_driver.auroc, apply, unflatten, f64(map_vec), f64(x), f64(y),
-                           f64(x_ood), f64(eps))
+        table64, ritz64, signs64 = _metrics(jnp, jax, bnn, metrics_driver.auroc, apply, unflatten, f64(map_vec),
+                                            f64(x), f64(y), f64(x_ood), f64(eps))
     out.update(
         metrics_x=np.asarray(x), metrics_y=np.asarray(y), metrics_x_ood=np.asarray(x_ood),
         metrics_init=np.asarray(params_vec), metrics_map=np.asarray(map_vec), metrics_eps=np.asarray(eps),
-        metrics=driver_table, metrics_f64=table64,
+        metrics=driver_table, metrics_f64=table64, metrics_signs=signs, metrics_signs_f64=signs64,
+        metrics_ritz=ritz, metrics_ritz_f64=ritz64,
     )
     return out
 
@@ -222,6 +258,8 @@ def main(argv=None) -> int:
     parser.add_argument("--out", type=Path, default=FIXTURE)
     args = parser.parse_args(argv)
     arrays = export()
+    from lanczos_adjoints_tpu_torch.train.laplace import relative_ritz_gaps
+
     np.savez_compressed(args.out, **arrays)
     spread = np.abs(arrays["metrics"] - arrays["metrics_f64"])
     print(f"wrote {args.out} ({args.out.stat().st_size} bytes)")
@@ -231,6 +269,9 @@ def main(argv=None) -> int:
     for row, name in enumerate(PREDICTIVES):
         print(name, dict(zip(METRICS, arrays["metrics"][row].round(6))),
               "f32-vs-f64 spread", dict(zip(METRICS, spread[row])))
+    flips = int(np.sum(arrays["metrics_signs"] != arrays["metrics_signs_f64"]))
+    print(f"Ritz vectors of opposite sign in float32 and float64: {flips} of {arrays['metrics_signs'].size}; "
+          f"smallest relative Ritz gap a sample {relative_ritz_gaps(arrays['metrics_ritz']).round(6)}")
     return 0
 
 

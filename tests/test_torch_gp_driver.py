@@ -391,7 +391,7 @@ def driver_problem():
 def _torch_driver_stack(probes, **kw):
     return train_gp.assemble(
         n_train=N_TRAIN, ndim=8, num_matvecs=DEPTH, num_samples=PROBES, rank_precon=48,
-        precon_block=16, matvec=train_gp.gram_policy("auto", 1, device="cpu"), device="cpu",
+        precon_block=16, matvec=train_gp.gram_policy("auto", 1), device="cpu",
         eval_sample=lambda _key: torch.tensor(probes), **kw,
     )
 
@@ -440,18 +440,41 @@ def test_training_loss_and_gradient_match_the_jax_driver(driver_problem, monkeyp
     assert _rel(params_t.grad.numpy(), np.asarray(grad_j)) <= 1e-3
 
 
-def test_auto_matvec_is_refused_on_a_cuda_device(tmp_path):
-    for num_partitions, device in ((1, "cuda"), (2, "cuda:0")):
-        with pytest.raises(ValueError, match="CPU only"):
-            train_gp.gram_policy("auto", num_partitions, device=device)
-    # run() refuses before it loads the data or touches the device.
-    with pytest.raises(ValueError, match="CPU only"):
-        train_gp.run(_run_args(tmp_path, epochs=0, device="cuda"), solver_mode="adaptive")
+@pytest.mark.parametrize(("num_partitions", "factory"), [(1, "gram_matvec"), (8, "gram_matvec_partitioned")])
+def test_auto_matvec_is_the_dense_or_partitioned_policy(num_partitions, factory):
+    # The policy of any device: choosing it builds closures and touches no device.
+    policy = train_gp.gram_policy("auto", num_partitions)
+    assert policy.__qualname__ == f"{factory}.<locals>.matvec"
+    assert train_gp.gram_policy("fused", num_partitions).__qualname__ == "gram_matvec_fused.<locals>.matvec"
+    with pytest.raises(ValueError, match="choose"):
+        train_gp.gram_policy("dense", num_partitions)
+
+
+def test_the_cli_defaults_to_auto_on_the_card(tmp_path):
     required = ["--name", "t", "--seed", "1", "--dataset", "synthetic_gp500k", "--rank_precon", "48",
                 "--num_partitions", "1", "--num_matvecs", "8", "--num_samples", "4", "--num_epochs", "0",
                 "--out", str(tmp_path)]
     parsed = train_gp.build_argparser(argparse.ArgumentParser()).parse_args(required)
-    assert parsed.matvec == "fused" and parsed.device == "cuda"
+    assert parsed.matvec == "auto" and parsed.device == "cuda"
+    assert not parsed.split_step and parsed.slq_host_batches == 1
+
+
+def test_auto_matches_the_plain_fused_path(driver_problem):
+    # The fused policy's shape through the kernels' plain versions (CPU tensors).
+    X, y, _Xq, _yq, params, _probes = driver_problem
+    probes = torch.tensor(np.random.default_rng(7).choice([-1.0, 1.0], size=(PROBES, N_TRAIN)), dtype=torch.float32)
+    results = {}
+    for policy in ("auto", "fused"):
+        stack = train_gp.assemble(
+            n_train=N_TRAIN, ndim=8, num_matvecs=DEPTH, num_samples=PROBES, rank_precon=48, precon_block=16,
+            matvec=train_gp.gram_policy(policy, 4), device="cpu", sample=lambda _key: probes,
+        )
+        p = torch.tensor(params, requires_grad=True)
+        value, _ = stack.mll_lanczos(p, None, torch.tensor(X), torch.tensor(y))
+        value.backward()
+        results[policy] = (value.item(), p.grad.numpy())
+    assert abs(results["auto"][0] - results["fused"][0]) <= 1e-5 * abs(results["fused"][0])
+    assert _rel(results["auto"][1], results["fused"][1]) <= 1e-4
 
 
 def _run_args(out, *, epochs, **kw):
@@ -506,8 +529,10 @@ def test_run_resumed_from_its_checkpoint_repeats_the_uninterrupted_run(two_epoch
 
 
 def test_load_data_names_the_missing_uci_files():
-    with pytest.raises(ValueError, match="A11"):
+    with pytest.raises(FileNotFoundError, match="elevators"):
         train_gp.load_data("elevators")
+    with pytest.raises(ValueError, match="Unknown dataset"):
+        train_gp.load_data("no_such_set")
 
 
 def test_checkpoint_round_trip_and_missing_directory(tmp_path):

@@ -27,7 +27,7 @@ from lanczos_adjoints_tpu.trace.slq import log_clipped as jlog_clipped  # noqa: 
 from lanczos_adjoints_tpu.utils import uci as juci  # noqa: E402
 from lanczos_adjoints_tpu_torch.models import gp  # noqa: E402
 from lanczos_adjoints_tpu_torch.train import gp as train_gp  # noqa: E402
-from lanczos_adjoints_tpu_torch.utils import uci  # noqa: E402
+from lanczos_adjoints_tpu_torch.utils import data, uci  # noqa: E402
 from lanczos_adjoints_tpu_torch.utils.precision import pin_float32  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -42,7 +42,7 @@ def _pin():
 
 def _problem(seed=0):
     X, y = uci.uci_synthetic_gp500k()
-    (X, y), _ = uci.split_train_test_shuffle(seed, X[:640], y[:640], train_fraction=0.8)
+    (X, y), _ = data.split_train_test_shuffle(seed, X[:640], y[:640], train_fraction=0.8)
     rng = np.random.default_rng(seed)
     params = np.concatenate(
         [[0.05], rng.uniform(0.5, 1.5, D), [0.3], [-1.0]]
@@ -203,7 +203,7 @@ def test_synthetic_dataset_is_bitwise_the_jax_packages():
     assert X_t.dtype == X_j.dtype and y_t.dtype == y_j.dtype
     np.testing.assert_array_equal(X_t, X_j)
     np.testing.assert_array_equal(y_t, y_j)
-    (tr, _te) = uci.split_train_test_shuffle(1, X_t, y_t, train_fraction=0.8)
+    (tr, _te) = data.split_train_test_shuffle(1, X_t, y_t, train_fraction=0.8)
     assert tr[0].shape == (400_000, D)
 
 

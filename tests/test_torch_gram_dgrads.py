@@ -24,7 +24,7 @@ from lanczos_adjoints_tpu.trace.slq import log_clipped as jlog_clipped  # noqa: 
 from lanczos_adjoints_tpu_torch.models import gp as tgp  # noqa: E402
 from lanczos_adjoints_tpu_torch.ops import fused_gram, gram  # noqa: E402
 from lanczos_adjoints_tpu_torch.train import gp as train_gp  # noqa: E402
-from lanczos_adjoints_tpu_torch.utils import uci  # noqa: E402
+from lanczos_adjoints_tpu_torch.utils import data, uci  # noqa: E402
 from lanczos_adjoints_tpu_torch.utils.precision import pin_float32  # noqa: E402
 
 # From tests/test_ops/test_pallas_gram.py (:23, and 10x it at :163 for the
@@ -179,7 +179,7 @@ CG = {"atol": 1e-4, "rtol": 0.0, "maxiter": 400, "miniter": 10}
 
 def _problem(seed=0):
     X, y = uci.uci_synthetic_gp500k()
-    (X, y), _ = uci.split_train_test_shuffle(seed, X[:640], y[:640], train_fraction=0.8)
+    (X, y), _ = data.split_train_test_shuffle(seed, X[:640], y[:640], train_fraction=0.8)
     rng = np.random.default_rng(seed)
     params = np.concatenate([[0.05], rng.uniform(0.5, 1.5, D), [0.3], [-1.0]]).astype(np.float32)
     probes = rng.choice([-1.0, 1.0], size=(PROBES, N)).astype(np.float32)

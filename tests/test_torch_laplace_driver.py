@@ -12,8 +12,8 @@ package's float64 run of the same loop (its float32 run is itself 6e-4
 from that; the port's float32 run is within 1e-5 of it), and within
 ``TOL_CURVES`` (0.5 %) of the float32 run; the diagonal calibration within
 1e-4 of the float32 run (no Lanczos in it); the metrics within
-``metric_tolerances`` (1 %, or ten times the JAX package's own
-float32-vs-float64 spread where larger), the MAP's within 1e-5.
+``metric_tolerances`` (1 %) at the JAX run's Ritz-vector signs
+(``metrics_signs``), the MAP's within 1e-5.
 """
 
 import importlib.util
@@ -102,7 +102,11 @@ def test_compute_metrics_driver_matches_jax(jax_run, tmp_path):
     _run(tmp_path, "compute_metrics_lanczos")
     table = laplace.metrics_table(json.loads((tmp_path / "s1_metrics.json").read_text()))
     np.testing.assert_allclose(table[0], jax_run["metrics"][0], rtol=1e-5, atol=1e-7)
-    assert np.all(np.abs(table - jax_run["metrics"]) <= laplace.metric_tolerances(jax_run))
+    tol = laplace.metric_tolerances(jax_run)
+    np.testing.assert_allclose(tol, 1e-2 * np.abs(jax_run["metrics"]))
+    assert np.all(np.abs(table - jax_run["metrics"]) <= tol)
+    # The samples have no Ritz pair close enough to rotate in float32.
+    assert np.all(laplace.relative_ritz_gaps(jax_run["metrics_ritz"]) > 1e-3)
 
 
 def test_train_map_matches_the_jax_map(fix):
