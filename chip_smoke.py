@@ -88,36 +88,53 @@ Phases, in order:
      closed-form log-determinant;
  13. the wave-PDE training step at 128 x 128 on the bundled pairs: the
      adjoint gradient against backprop, then three Adam steps;
- 14. K9's time per launch beside its bound (each array once), the
+ 14. the PDE driver: ``train.pde.run`` (the JAX ``train.py`` epoch loop)
+     from the JAX run's flax weights (``train/pde_s1.npz``) at 32 x 32
+     (Arnoldi depth 4, 4 epochs: each loss and the learned field within
+     1e-4 of the committed series), and at 128 x 128 with Arnoldi depth 10
+     and Euler with 40 matvecs (5 epochs each: epoch 0 within 1e-3 of the
+     committed TPU series, every epoch within the larger of 1e-3 and 10x
+     JAX's float32-vs-float64 spread of its float32 CPU run), the matvecs,
+     the four files, epoch wall times;
+ 15. the work-precision sweep (``train.pde_workprecision.run``) at 64 x 64:
+     float32 (Arnoldi depth 4 within 1 % of JAX's CPU value, every other
+     error at most 1e-4) and float64 (the committed
+     ``workprecision_x64_s1.json`` within 1 % above 1e-12, below 1e-12
+     where it is below), the committed float32 (TPU) file beside;
+ 16. the data generator (``train.pde_data.run``) at 128 x 128 with 80 pairs
+     from a generator (shapes, dtypes, finite), and RK4 from the bundled
+     inputs and parameter missing the bundled targets by JAX's own miss
+     (within 1e-4, at 32 x 32 and 128 x 128);
+ 17. K9's time per launch beside its bound (each array once), the
      traffic of its streamed schedule where the basis cannot stay on
      chip (three reads of the basis a step, two without
      re-orthogonalisation), its plain version and its launch plan (path,
      blocks, tile rows);
- 15. K3 parity (``csrc/gram_dgrads.cu``): the data-gradient moments
+ 18. K3 parity (``csrc/gram_dgrads.cu``): the data-gradient moments
      against their plain version at [parity]'s rows and widths, m in
      {1, 8, 15, 225, 400}, bit for bit across two runs, and the
      Function's x and y gradients against autograd through the plain
      matvec (run after phase 5);
- 16. the input-gradient slice: at N = 2,048 the gradient in the
+ 19. the input-gradient slice: at N = 2,048 the gradient in the
      parameters and the training inputs through the kernels against the
      plain policy, then one step at N_train = 400,000 with its launches
      (K3 is timed with K1 and K2 in phase 4's table);
- 17. BSR parity: K10 (``csrc/bsr.cu``, over the packed CSR view of the
+ 20. BSR parity: K10 (``csrc/bsr.cu``, over the packed CSR view of the
      tiles) against both plain versions (the tile product and the packed
      product), bit for bit across two runs, and its Function's backward,
      on the FEM test matrix (grid 24), its RCM permutation, a ragged
      rectangular matrix, tiles with values off the CSR structure and
      tiles updated in place between two calls (the cache packs again);
- 18. the BSR slice: the FEM matrix -> ``sparse_operator`` (BSR, K10) ->
+ 21. the BSR slice: the FEM matrix -> ``sparse_operator`` (BSR, K10) ->
      the Lanczos (K = 90) and re-orthogonalised Arnoldi VJPs, custom
      adjoint and backprop (one pack of the tiles a VJP), per-probe SLQ
      against a float64 dense Cholesky log-determinant, and one Lanczos
      VJP over a HYB operator;
- 19. K10's time per launch with the L2 flushed before each call (cold)
+ 22. K10's time per launch with the L2 flushed before each call (cold)
      and with only the vector changing (warm), beside cuSPARSE CSR under
      both, the bound on the bytes the nonzeros need, its plain version
      and the pack;
- 20. halo parity: K11 (``csrc/halo_dia.cu``) on P in {1, 2, 8, 64}
+ 23. halo parity: K11 (``csrc/halo_dia.cu``) on P in {1, 2, 8, 64}
      partitions (where the local rows hold the halo), on one allocation
      a partition, on views of one tensor and on views offset by one
      float (1 row a thread), bit for bit against K4 on the whole vector
@@ -129,19 +146,19 @@ Phases, in order:
      and 1) reached; the C entry refuses a vector launch on misaligned
      operands; the Function's dv (K11 on the transpose) against K4^T and
      dvals against K5 (bit for bit);
- 21. the halo slice: the multi-device scaling benchmark's 5-diagonal
+ 24. the halo slice: the multi-device scaling benchmark's 5-diagonal
      operator at n = 2^20 -> ``parallel.sharded_dia_operator`` ->
      ``tridiag(K = 30)``, one VJP with the all-ones cotangent at P in
      {1, 2, 4, 8}: 60 K11 launches per VJP and no other DIA kernel, the
      dispatch log, agreement with the unsharded K6/K7 route, VJP wall
      times, a profiled VJP at P = 8;
- 22. the mesh slice: ``train.gp.dryrun_multichip(8)`` with the fused
+ 25. the mesh slice: ``train.gp.dryrun_multichip(8)`` with the fused
      kernels, then one ``adj400k`` step over an 8-partition rows mesh
      against the unsharded step (loss 1e-4, gradient 1e-3), launches 8x;
- 23. K11's time per launch at n = 2^20, P = 8, 4, 2 and 1, beside its
+ 26. K11's time per launch at n = 2^20, P = 8, 4, 2 and 1, beside its
      bound and traffic, its plain version, K4 on the whole vector and
      cuSPARSE;
- 24. the linearised-Laplace drivers (``train.laplace``, no kernel) at the
+ 27. the linearised-Laplace drivers (``train.laplace``, no kernel) at the
      parity MLP of 3,709 parameters, from the JAX drivers' float32 CPU
      run (its fixture ``laplace_s1.npz``): ``train_map`` from JAX's
      initial parameters (MAP within 1e-3), ``calibrate`` (3 epochs) and
@@ -151,7 +168,12 @@ Phases, in order:
      package's float32-vs-float64 spread and each sample's smallest
      relative Ritz gap printed), the committed TPU files printed beside
      without a gate;
- 25. ``python -m lanczos_adjoints_tpu_torch.train.laplace callibration``
+ 28. ``train.laplace gridsearch`` (``plot_callibration_loss.py``) at 3,709
+     parameters on the JAX grid search's own probes (9 log alphas x 5):
+     each loss within 1e-3 of JAX's float64 CPU run and within 10x JAX's
+     float32-vs-float64 spread of its float32 run, each std within 1e-2,
+     the committed TPU ``s1_gridsearch.npz`` beside without a gate;
+ 29. ``python -m lanczos_adjoints_tpu_torch.train.laplace callibration``
      at ``FULL_WIDTH_ARGS`` (3,688,970 parameters, 15 of its 30 epochs) on the
      port's own data: finite, the final loss under half the first, one
      float32 step within 1e-3 (loss) and 1e-2 (d/dlog alpha) of float64,
@@ -2199,6 +2221,247 @@ def phase_slice_pde(resolution=PDE_GRID, steps=PDE_STEPS):
     return {"losses": losses, "step_s": times, "grad_rel_err": rel}
 
 
+# The PDE drivers (train.pde, pde_workprecision, pde_data), held to the JAX
+# drivers' CPU runs (train/pde_s1.npz) and to the committed series where
+# those reproduce: (resolution, method, num_matvecs, epochs).
+PDE_DRIVER_RUNS = ((32, "arnoldi", 4, 4), (128, "arnoldi", 10, 5), (128, "euler", 40, 5))
+# 32 x 32: each loss and the learned field (over its largest value) against
+# the committed series, which the JAX package reproduces on the CPU within
+# 1.9e-7. 128 x 128: epoch 0 against the committed (TPU) series, every epoch
+# against JAX's float32 CPU run within the larger of 1e-3 and 10x that run's
+# float32-vs-float64 spread at the epoch (the loss jumps ~1e5-fold after the
+# first Adam step, so rounding moves the later epochs).
+TOL_PDE_COMMITTED = 1e-4
+TOL_PDE_EPOCH0 = 1e-3
+TOL_PDE_FLOOR = 1e-3
+# The work-precision sweep at 64 x 64: float32 Arnoldi depth 4 (truncation-
+# dominated) within 1 % of JAX's CPU value, every other float32 error at most
+# 1e-4 (the float32 floor is ~1.2e-5); float64 within 1 % of the committed
+# workprecision_x64_s1.json where that is above the float64 floor 1e-12,
+# and below 1e-12 where it is not.
+TOL_WP_DEPTH4 = 1e-2
+WP_F32_CEILING = 1e-4
+TOL_WP_F64 = 1e-2
+WP_F64_FLOOR = 1e-12
+# make_data at 128 x 128: RK4 from the bundled inputs and parameter misses
+# the bundled targets by JAX's own miss (train/pde_s1.npz) within this.
+TOL_RK4_MISS = 1e-4
+# The grid search: each loss within 1e-3 of JAX's float64 CPU run, and within
+# 1e-4 of its float32 CPU run less the bias of that run's ordered float32 sum
+# in the Arnoldi start (train.laplace.jax_float32_dot_bias, 0.119 at every
+# alpha; so corrected, JAX's float32 run is 3.0e-5 from its float64 run);
+# each std within 1e-2 of the float64 run's.
+TOL_GRID_LOSS = 1e-3
+TOL_GRID_F32 = 1e-4
+TOL_GRID_STD = 1e-2
+
+
+def _pde_run(train_pde, fix, resolution, method, num_matvecs, epochs, out):
+    args = train_pde.build_argparser().parse_args(
+        ["--resolution", str(resolution), "--method", method, "--num_matvecs", str(num_matvecs), "--num_epochs",
+         str(epochs), "--device", DEVICE, "--out", out])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = train_pde.run(args, fixture=fix)
+    return result, time.perf_counter() - t0, sorted(f for f in os.listdir(out) if f.startswith(train_pde.label(args)))
+
+
+def phase_slice_pde_driver(runs=PDE_DRIVER_RUNS):
+    """``train.pde.run`` (the JAX ``train.py`` epoch loop) from the JAX run's
+    flax weights at each of ``runs``: the losses against the committed series
+    and JAX's float32 and float64 CPU runs, the matvecs, the learned field,
+    the epoch wall times."""
+    import tempfile
+
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.train import pde as train_pde
+
+    fix = train_pde.load_fixture()
+    card = _card_line()
+    print(f"[slice-pde-driver] train.pde.run from the JAX run's flax weights (train/pde_s1.npz) on {card}", flush=True)
+    failures, results = [], {}
+    native.reset_launches()
+    mode = _OnCard()
+    for resolution, method, num_matvecs, epochs in runs:
+        name = f"{resolution}x{resolution}_{method}"
+        with tempfile.TemporaryDirectory() as out, mode:
+            result, wall, files = _pde_run(train_pde, fix, resolution, method, num_matvecs, epochs, out)
+        conv = result["convergence"]
+        jax32, jax64 = fix[f"{name}/convergence"][:epochs], fix[f"{name}/convergence_f64"][:epochs]
+        committed = np.load(train_pde.JAX_TPU_RESULTS / "train" / f"{name}_s1_convergence.npy")[:epochs]
+        epoch_s = np.diff(np.concatenate([[0.0], result["timestamps"]]))
+        gap_tpu, gap32 = np.abs(conv / committed - 1.0), np.abs(conv / jax32 - 1.0)
+        gap64, spread = np.abs(conv / jax64 - 1.0), np.abs(jax32 / jax64 - 1.0)
+        print(f"  {name}, {num_matvecs} matvecs, {epochs} epochs: losses {conv.tolist()}", flush=True)
+        print(f"    JAX float32 CPU {jax32.tolist()}, float64 {jax64.tolist()}, committed (TPU) {committed.tolist()}",
+              flush=True)
+        print(f"    rel gap to JAX f32 {gap32.tolist()}, to JAX f64 {gap64.tolist()}, to the committed series "
+              f"{gap_tpu.tolist()}; JAX f32-vs-f64 spread {spread.tolist()}", flush=True)
+        print(f"    epoch wall s {np.round(epoch_s, 4).tolist()} (run {wall:.2f} s, first epoch with warm-up; {card}); "
+              f"matvecs {result['matvecs'].tolist()}; files {files}", flush=True)
+        if len(files) != 4:
+            failures.append(f"{name} wrote {files}")
+        if not np.array_equal(result["matvecs"], fix[f"{name}/matvecs"][:epochs]):
+            failures.append(f"{name} matvecs")
+        if not np.all(np.isfinite(conv)):
+            failures.append(f"{name} non-finite loss")
+        field = result["scale_field"]
+        field_jax = fix[f"{name}/scale_field"]
+        field_gap = float(np.max(np.abs(field - field_jax)) / np.max(np.abs(field_jax)))
+        if resolution == 32:
+            field_tpu = np.load(train_pde.JAX_TPU_RESULTS / "train" / f"{name}_s1_scale_field.npy")
+            field_gap = float(np.max(np.abs(field - field_tpu)) / np.max(np.abs(field_tpu)))
+            ok = bool(np.all(gap_tpu <= TOL_PDE_COMMITTED)) and field_gap <= TOL_PDE_COMMITTED
+            print(f"    each loss within {TOL_PDE_COMMITTED:.0e} of the committed series: {bool(np.all(gap_tpu <= TOL_PDE_COMMITTED))}; "
+                  f"field max gap {field_gap:.3e} of its largest (tol {TOL_PDE_COMMITTED:.0e}) {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                failures.append(f"{name} against the committed series")
+        else:
+            tol = np.maximum(TOL_PDE_FLOOR, SPREAD_FACTOR * spread)
+            ok0, ok = bool(gap_tpu[0] <= TOL_PDE_EPOCH0), bool(np.all(gap32 <= tol))
+            print(f"    epoch 0 within {TOL_PDE_EPOCH0:.0e} of the committed series: {ok0}; every epoch within "
+                  f"{tol.tolist()} of JAX f32: {ok}; field max gap to JAX's CPU field {field_gap:.3e} of its "
+                  f"largest (no gate)", flush=True)
+            if not ok0:
+                failures.append(f"{name} epoch 0")
+            if not ok:
+                failures.append(f"{name} epochs against JAX f32")
+        results[name] = {"losses": conv.tolist(), "epoch_s": epoch_s.tolist(), "gap32": gap32.tolist(),
+                         "gap_tpu": gap_tpu.tolist(), "field_gap": field_gap}
+    mode.check("slice-pde-driver")
+    _no_kernel_launched("slice-pde-driver")
+    if failures:
+        raise RuntimeError(f"slice-pde-driver failed: {failures}")
+    return results
+
+
+def phase_slice_pde_workprecision(resolution=64):
+    """``train.pde_workprecision.run`` at 64 x 64 in float32 and with ``--x64``
+    on the card: against JAX's float32 CPU sweep (the fixture) and the
+    committed float64 ``workprecision_x64_s1.json``; the committed float32
+    file (TPU) printed beside, without a gate."""
+    import argparse
+    import tempfile
+
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.train import pde as train_pde
+    from lanczos_adjoints_tpu_torch.train import pde_workprecision as wp
+
+    fix = train_pde.load_fixture()
+    committed = {tag: json.loads((train_pde.JAX_TPU_RESULTS / "workprecision" / f"workprecision{tag}_s1.json")
+                                 .read_text()) for tag in ("", "_x64")}
+    print(f"[slice-pde-workprecision] {resolution}x{resolution}, gradient error against RK4 with "
+          f"{wp.REFERENCE_STEPS} steps, float32 and float64 on the card", flush=True)
+    failures, runs = [], {}
+    native.reset_launches()
+    mode = _OnCard()
+    with tempfile.TemporaryDirectory() as out, mode:
+        for x64 in (False, True):
+            args = argparse.Namespace(resolution=resolution, seed=1, x64=x64, device=DEVICE, out=out)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = wp.run(args)
+            torch.cuda.synchronize()
+            runs["x64" if x64 else "f32"] = {"rows": rows, "s": time.perf_counter() - t0}
+        files = sorted(os.listdir(out))
+    mode.check("slice-pde-workprecision")
+    _no_kernel_launched("slice-pde-workprecision")
+    print(f"  files {files}; wall f32 {runs['f32']['s']:.2f} s, f64 {runs['x64']['s']:.2f} s", flush=True)
+    keys = [(r["method"], r["num_matvecs"]) for r in runs["f32"]["rows"]]
+    if keys != list(zip(fix["workprecision/method"].tolist(), fix["workprecision/num_matvecs"].tolist())):
+        failures.append(f"float32 rows {keys}")
+    for row, want, tpu in zip(runs["f32"]["rows"], fix["workprecision/error"], committed[""]):
+        if (row["method"], row["num_matvecs"]) == ("arnoldi", 4):
+            gap = abs(row["error"] / want - 1.0)
+            ok, rule = gap <= TOL_WP_DEPTH4, f"rel gap {gap:.2e} (tol {TOL_WP_DEPTH4:.0e})"
+        else:
+            ok, rule = row["error"] <= WP_F32_CEILING, f"at most {WP_F32_CEILING:.0e}"
+        print(f"  f32 {row['method']} {row['num_matvecs']:>3} matvecs: {row['error']:.4e} vs JAX CPU {want:.4e}, "
+              f"{rule} {'ok' if ok else 'FAIL'}; committed TPU file {tpu['error']:.4e} (no gate)", flush=True)
+        if not ok:
+            failures.append(f"f32 {row['method']} {row['num_matvecs']}")
+    if [(r["method"], r["num_matvecs"]) for r in runs["x64"]["rows"]] != \
+            [(r["method"], r["num_matvecs"]) for r in committed["_x64"]]:
+        failures.append("float64 rows")
+    for row, want in zip(runs["x64"]["rows"], committed["_x64"]):
+        if want["error"] > WP_F64_FLOOR:
+            gap = abs(row["error"] / want["error"] - 1.0)
+            ok, rule = gap <= TOL_WP_F64, f"rel gap {gap:.2e} (tol {TOL_WP_F64:.0e})"
+        else:
+            ok, rule = row["error"] < WP_F64_FLOOR, f"below {WP_F64_FLOOR:.0e}"
+        print(f"  f64 {row['method']} {row['num_matvecs']:>3} matvecs: {row['error']:.4e} vs committed "
+              f"{want['error']:.4e}, {rule} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"f64 {row['method']} {row['num_matvecs']}")
+    if failures:
+        raise RuntimeError(f"slice-pde-workprecision failed: {failures}")
+    return runs
+
+
+def phase_slice_pde_data(resolution=128, num_data=80):
+    """``train.pde_data.run`` (``make_data.py``) at 128 x 128 with 80 pairs from a
+    generator: the files' shapes and dtypes against the bundled ones, finite;
+    then RK4 from the bundled inputs and parameter against the bundled targets,
+    missing them by JAX's own miss."""
+    import argparse
+    import tempfile
+
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.train import pde as train_pde
+    from lanczos_adjoints_tpu_torch.train import pde_data
+
+    fix = train_pde.load_fixture()
+    print(f"[slice-pde-data] make_data at {resolution}x{resolution}, {num_data} pairs: GRF over a "
+          f"{resolution**2:,}^2 RBF covariance (Lanczos rank {pde_data.LANCZOS_RANK}), RK4 400 steps, one conv2d "
+          f"a stage", flush=True)
+    failures = []
+    native.reset_launches()
+    mode = _OnCard()
+    with tempfile.TemporaryDirectory() as out:
+        args = argparse.Namespace(resolution=resolution, num_data=num_data, seed=1, num_steps=400, device=DEVICE,
+                                  out=out, fixture=None)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mode:
+            pde_data.run(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for name in ("inputs", "targets", "parameter"):
+            got = np.load(f"{out}/{resolution}x{resolution}_data_{name}.npy")
+            want = np.load(pde_data.DATA / f"{resolution}x{resolution}_data_{name}.npy", mmap_mode="r")
+            ok = (got.dtype, got.shape) == (want.dtype, want.shape) and bool(np.all(np.isfinite(got)))
+            print(f"  {name}: {got.dtype} {got.shape} (bundled {want.dtype} {want.shape}), finite "
+                  f"{bool(np.all(np.isfinite(got)))}, max |.| {float(np.max(np.abs(got))):.4e} "
+                  f"(bundled {float(np.max(np.abs(want))):.4e}) {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(name)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  make_data {wall:.2f} s wall, peak {peak:.2f} GiB", flush=True)
+    misses = {}
+    for n in (32, resolution):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mode:
+            max_rel, norm_rel, _ = pde_data.bundled_miss(n, device=DEVICE)
+        torch.cuda.synchronize()
+        want = fix[f"rk4_miss/{n}"]
+        gaps = (abs(max_rel - want[0]), abs(norm_rel - want[1]))
+        ok = max(gaps) <= TOL_RK4_MISS
+        print(f"  RK4 from the bundled {n}x{n} inputs and parameter against its targets: max {max_rel:.6e} "
+              f"(JAX {want[0]:.6e}), norm {norm_rel:.6e} (JAX {want[1]:.6e}), gaps {gaps[0]:.2e}, {gaps[1]:.2e} "
+              f"(tol {TOL_RK4_MISS:.0e}) {'ok' if ok else 'FAIL'}; {time.perf_counter() - t0:.2f} s", flush=True)
+        misses[n] = (max_rel, norm_rel)
+        if not ok:
+            failures.append(f"RK4 miss at {n}")
+    mode.check("slice-pde-data")
+    _no_kernel_launched("slice-pde-data")
+    if failures:
+        raise RuntimeError(f"slice-pde-data failed: {failures}")
+    return {"wall_s": wall, "peak_gib": peak, "misses": misses}
+
+
 def _arnoldi_ops(n, depth, passes, num_diags=5):
     """fp32 operations of K9: the Gram-Schmidt dots and updates and the matvec."""
     return 4 * passes * n * depth * (depth + 1) // 2 + 2 * num_diags * n * depth
@@ -3243,6 +3506,63 @@ def phase_slice_laplace():
                         "compute_metrics": t_metrics}}
 
 
+def phase_slice_laplace_grid():
+    """``python -m lanczos_adjoints_tpu_torch.train.laplace gridsearch`` at the
+    parity MLP (3,709 parameters) on the fixture's probes (the JAX grid
+    search's own): the 9 x 5 losses against JAX's float64 and float32 CPU runs,
+    the committed TPU ``s1_gridsearch.npz`` printed beside, without a gate."""
+    import argparse
+    import tempfile
+
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.train import laplace
+
+    fix = laplace.fixture()
+    failures = []
+    with tempfile.TemporaryDirectory() as out:
+        args = laplace.build_argparser(argparse.ArgumentParser(), "gridsearch").parse_args(
+            ["--device", DEVICE, "--out", out, "--fixture", str(laplace.FIXTURE)])
+        print(f"[slice-laplace-grid] train.laplace gridsearch: {len(args.log_alphas)} log alphas x "
+              f"{args.num_loss_samples} probe sets from the fixture at the calibration run's MAP", flush=True)
+        native.reset_launches()
+        mode = _OnCard()
+        with mode:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = laplace.run("gridsearch", args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        saved = np.load(f"{out}/s1_gridsearch.npz")
+        files = {k: (str(saved[k].dtype), saved[k].shape) for k in saved.files}
+    mode.check("slice-laplace-grid")
+    _no_kernel_launched("slice-laplace-grid")
+    values, losses, stds = result["values"], result["losses"], result["stds"]
+    bias = laplace.jax_float32_dot_bias(fix["grid_probes"])
+    jax32 = fix["grid_values"] - bias
+    gap64 = np.abs(values / fix["grid_values_f64"] - 1.0)
+    gap32 = np.abs(values / jax32 - 1.0)
+    std_gap = np.abs(stds / fix["grid_stds_f64"] - 1.0)
+    tpu = _laplace_tpu_file("plot_callibration_loss/s1_gridsearch.npz")
+    for i, log_alpha in enumerate(args.log_alphas):
+        print(f"  log alpha {log_alpha:+.1f}: loss {losses[i]:.4f} +- {stds[i]:.4f}; JAX f64 "
+              f"{fix['grid_losses_f64'][i]:.4f} +- {fix['grid_stds_f64'][i]:.4f}, JAX f32 {fix['grid_losses'][i]:.4f} "
+              f"+- {fix['grid_stds'][i]:.4f}; committed TPU {tpu['losses'][i]:.4f} +- {tpu['stds'][i]:.4f} (no gate)",
+              flush=True)
+    ok_loss, ok32 = bool(np.all(gap64 <= TOL_GRID_LOSS)), bool(np.all(gap32 <= TOL_GRID_F32))
+    ok_std = bool(np.all(std_gap <= TOL_GRID_STD))
+    print(f"  each of the 45 losses: max rel gap to JAX f64 {gap64.max():.3e} (tol {TOL_GRID_LOSS:.0e}) "
+          f"{'ok' if ok_loss else 'FAIL'}; to JAX f32 less its start-vector dot bias {bias.min():.6f}-"
+          f"{bias.max():.6f}: max rel gap {gap32.max():.3e} (tol {TOL_GRID_F32:.0e}; without the correction "
+          f"{np.abs(values / fix['grid_values'] - 1.0).max():.3e}) {'ok' if ok32 else 'FAIL'}; "
+          f"stds max rel gap to JAX f64 {std_gap.max():.3e} (tol {TOL_GRID_STD:.0e}) {'ok' if ok_std else 'FAIL'}; "
+          f"{wall:.2f} s wall (45 losses at the fixture's MAP); file {files}", flush=True)
+    failures += [label for label, ok in (("losses vs f64", ok_loss), ("losses vs f32", ok32), ("stds", ok_std))
+                 if not ok]
+    if failures:
+        raise RuntimeError(f"slice-laplace-grid failed: {failures}")
+    return {"wall_s": wall, "gap64": float(gap64.max()), "gap32": float(gap32.max()), "std_gap": float(std_gap.max())}
+
+
 def phase_slice_laplace_full():
     """``python -m lanczos_adjoints_tpu_torch.train.laplace callibration`` at
     ``train.laplace.FULL_WIDTH_ARGS`` (the MLP 256 -> 2048 -> 1536 -> 10,
@@ -3379,6 +3699,9 @@ def main() -> int:
     arnoldi_runs = {shape: phase_slice_arnoldi(*shape) for shape in ARNOLDI_SLICE}
     slq_run = phase_slice_slq()
     phase_slice_pde()
+    phase_slice_pde_driver()
+    phase_slice_pde_workprecision()
+    phase_slice_pde_data()
     entries.append(phase_timing_arnoldi(arnoldi_runs))
     phase_parity_bsr()
     bsr_run = phase_slice_bsr()
@@ -3388,6 +3711,7 @@ def main() -> int:
     phase_slice_mesh(N_TRAIN)
     entries.append(phase_timing_halo(halo_run))
     phase_slice_laplace()
+    phase_slice_laplace_grid()
     phase_slice_laplace_full()
     main_arnoldi = arnoldi_runs[ARNOLDI_MAIN]["launches"]["fused"]
     for entry in entries:

@@ -122,9 +122,9 @@ def params_from_jax(variables_or_flat, device="cuda"):
             for key in sorted(tree):
                 yield from leaves(tree[key])
         else:
-            yield torch.as_tensor(np.array(tree)).reshape(-1)
+            yield torch.as_tensor(np.array(tree), device=device).reshape(-1)
 
-    return torch.cat(list(leaves(variables_or_flat))).to(device)
+    return torch.cat(list(leaves(variables_or_flat)))
 
 
 # ---------------------------------------------------------------------------

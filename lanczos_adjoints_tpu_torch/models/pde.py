@@ -33,14 +33,14 @@ def mesh_tensorproduct(x, y, /):
     return torch.stack(torch.meshgrid(x, y, indexing="xy"))
 
 
-def stencil_laplacian(dx):
+def stencil_laplacian(dx, *, dtype=None, device=None):
     """Standard 5-point 2-D Laplacian stencil (the ``-4`` centre).
 
     The JAX package's deliberate divergence from the reference, whose
     ``-2`` centre adds a spurious zeroth-order term; see
     ``stencil_laplacian_reference``.
     """
-    stencil = torch.tensor([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]])
+    stencil = torch.tensor([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]], dtype=dtype, device=device)
     return stencil / dx**2
 
 
@@ -56,14 +56,24 @@ def stencil_advection_diffusion(dx):
     return diffusion / dx**2 + advection / (2 * dx)
 
 
+def mesh_and_stencil(resolution, *, dtype=torch.float32, device="cuda"):
+    """The unit square's ``(2, n, n)`` mesh at ``resolution`` points a side and
+    its Laplacian stencil, as the PDE scripts build them."""
+    xs_1d = torch.linspace(0.0, 1.0, resolution, dtype=dtype, device=device)
+    mesh = mesh_tensorproduct(xs_1d, xs_1d)
+    return mesh, stencil_laplacian(float(xs_1d[1] - xs_1d[0]), dtype=dtype, device=device)
+
+
 def _conv2d_valid(stencil, x):
-    """2-D valid convolution of ``x`` with ``stencil`` (``convolve2d(stencil, x, "valid")``).
+    """2-D valid convolution of ``x`` with ``stencil`` (``convolve2d(stencil, x, "valid")``)
+    over the last two axes; leading axes are a batch, one ``conv2d`` for all.
 
     ``F.conv2d`` cross-correlates, so it takes the flipped stencil, as
     the JAX package's ``lax.conv_general_dilated`` does.
     """
     kernel = torch.flip(stencil, (0, 1)).to(dtype=x.dtype, device=x.device)
-    return F.conv2d(x[None, None], kernel[None, None])[0, 0]
+    out = F.conv2d(x.reshape(-1, 1, *x.shape[-2:]), kernel[None, None])
+    return out.reshape(*x.shape[:-2], *out.shape[-2:])
 
 
 # ---------------------------------------------------------------------------
@@ -83,7 +93,8 @@ def pde_init_bell(c, /):
 
         return fun
 
-    return parametrize, {"center_logits": torch.empty((2,))}
+    # A shape template, as the JAX package's ``jnp.empty``: it holds no values.
+    return parametrize, {"center_logits": torch.empty((2,), device="meta")}
 
 
 def pde_init_sine():
@@ -104,7 +115,10 @@ def pde_init_sine():
 
 
 def _check_square(x, ndim):
-    if x.ndim != ndim or x.shape[-1] != x.shape[-2] or (ndim == 3 and x.shape[0] != 2):
+    """An ``(n, n)`` field (``ndim == 2``), or a ``(2, n, n)`` state or a batch
+    ``(..., 2, n, n)`` of them (``ndim == 3``)."""
+    ok = x.ndim == 2 if ndim == 2 else (x.ndim >= 3 and x.shape[-3] == 2)
+    if not ok or x.shape[-1] != x.shape[-2]:
         raise ValueError(f"unexpected state shape {tuple(x.shape)}")
 
 
@@ -136,9 +150,9 @@ def pde_heat_anisotropic(scale_like, /, stencil, *, constrain, boundary: Callabl
 
         def rhs(x, /):
             _check_square(x, 3)
-            u, du = x
+            u, du = x.unbind(-3)
             u_new = -_conv2d_valid(stencil, boundary(u)) * scale_constrained
-            return torch.stack([u_new, du])
+            return torch.stack([u_new, du], dim=-3)
 
         return rhs
 
@@ -146,16 +160,20 @@ def pde_heat_anisotropic(scale_like, /, stencil, *, constrain, boundary: Callabl
 
 
 def pde_wave_anisotropic(scale_like, /, stencil, *, constrain, boundary: Callable):
-    """Second-order wave equation as the first-order system [u', c Lap u]."""
+    """Second-order wave equation as the first-order system [u', c Lap u].
+
+    The state is ``(2, n, n)``, or a batch ``(..., 2, n, n)`` of them
+    through one convolution (the JAX package ``vmap``s instead).
+    """
 
     def parametrize(*, scale):
         scale_constrained = constrain(scale)
 
         def rhs(x, /):
             _check_square(x, 3)
-            u, du = x
+            u, du = x.unbind(-3)
             u_new = _conv2d_valid(stencil, boundary(u)) * scale_constrained
-            return torch.stack([du, u_new])
+            return torch.stack([du, u_new], dim=-3)
 
         return rhs
 
@@ -203,6 +221,23 @@ def solver_euler(ts, vector_field, /):
         for dt in torch.diff(ts):
             y = y + dt * vector_field(y, *p)
         return y, {"num_matvecs": len(ts) - 1}
+
+    return solve
+
+
+def solver_rk4(ts, vector_field, /):
+    """Classical RK4 over the time grid ``ts``: ``solve(y0, *p) -> y1``
+    (the JAX data generator's solver, ``make_data.py``)."""
+
+    def solve(y0, *p):
+        y = y0
+        for dt in torch.diff(ts):
+            k1 = vector_field(y, *p)
+            k2 = vector_field(y + dt / 2 * k1, *p)
+            k3 = vector_field(y + dt / 2 * k2, *p)
+            k4 = vector_field(y + dt * k3, *p)
+            y = y + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+        return y
 
     return solve
 
@@ -279,16 +314,16 @@ class MLP(torch.nn.Module):
     returned as ``(n, n)``.
     """
 
-    def __init__(self, features: Sequence[int], activation: Callable, *, output_scale_raw):
+    def __init__(self, features: Sequence[int], activation: Callable, *, output_scale_raw, device=None):
         super().__init__()
         if features[-1] != 1:
             raise ValueError(f"the last layer must have one feature, got {features}")
         widths = [2, *features]
         self.layers = torch.nn.ModuleList(
-            torch.nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:])
+            torch.nn.Linear(a, b, device=device) for a, b in zip(widths[:-1], widths[1:])
         )
         self.activation = activation
-        self.output_scale = F.softplus(torch.tensor(float(output_scale_raw))).item()
+        self.output_scale = F.softplus(torch.tensor(float(output_scale_raw), device=device)).item()
 
     def forward(self, mesh):
         x = mesh.reshape(2, -1).T
@@ -306,7 +341,7 @@ def model_mlp(mesh_like, features, /, activation: Callable, *, output_scale_raw,
     """
     if mesh_like.ndim != 3:
         raise ValueError(f"expected a (2, n, n) mesh, got {tuple(mesh_like.shape)}")
-    model = MLP(features, activation, output_scale_raw=output_scale_raw)
+    model = MLP(features, activation, output_scale_raw=output_scale_raw, device=mesh_like.device)
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for layer in model.layers:
@@ -315,9 +350,9 @@ def model_mlp(mesh_like, features, /, activation: Callable, *, output_scale_raw,
             draw = rng.standard_normal((fan_out, fan_in))
             while np.any(out := np.abs(draw) > 2.0):
                 draw[out] = rng.standard_normal(int(out.sum()))
-            layer.weight.copy_(torch.tensor(draw * std))
+            layer.weight.copy_(torch.tensor(draw * std, dtype=layer.weight.dtype, device=layer.weight.device))
             layer.bias.zero_()
-    return model.to(mesh_like.device)
+    return model
 
 
 def params_from_jax(model: MLP, variables):
@@ -330,8 +365,9 @@ def params_from_jax(model: MLP, variables):
     with torch.no_grad():
         for i, layer in enumerate(model.layers):
             dense = params[f"Dense_{i}"]
-            layer.weight.copy_(torch.tensor(np.asarray(dense["kernel"]).T))
-            layer.bias.copy_(torch.tensor(np.asarray(dense["bias"])))
+            like = {"dtype": layer.weight.dtype, "device": layer.weight.device}
+            layer.weight.copy_(torch.tensor(np.asarray(dense["kernel"]).T, **like))
+            layer.bias.copy_(torch.tensor(np.asarray(dense["bias"]), **like))
     return model
 
 
@@ -341,6 +377,12 @@ def params_from_jax(model: MLP, variables):
 
 
 def _standard_normal(key, shape, like):
+    """``shape`` normal draws from the generator ``key``, or ``key`` itself
+    where it is a tensor of the draws."""
+    if isinstance(key, torch.Tensor):
+        if tuple(key.shape) != tuple(shape):
+            raise ValueError(f"expected draws of shape {tuple(shape)}, got {tuple(key.shape)}")
+        return key.to(like)
     return torch.randn(shape, generator=key, device=key.device).to(like)
 
 
@@ -348,7 +390,8 @@ def sampler_lanczos(*, mean, cov_matvec, num, lanczos_rank):
     """Gaussian-random-field sampler: ``x = mean + C^(1/2) eps`` via Lanczos.
 
     ``sample(key)`` draws ``num`` fields from the ``torch.Generator``
-    ``key``; ``cov_matvec(v)`` applies the covariance.
+    ``key``, or takes ``key`` as the ``(num, *mean.shape)`` normal draws;
+    ``cov_matvec(v)`` applies the covariance.
     """
     factorise = lanczos.tridiag(cov_matvec, lanczos_rank, reortho="full")
 

@@ -6,11 +6,13 @@ the Laplace evidence, its logdet an SLQ estimate over the GGN matvec),
 ``callibration_diag.py`` (the same with the Hutchinson-diagonal logdet)
 and ``compute_metrics_lanczos.py`` (NLL, accuracy, confidence, ECE and
 OOD AUROC of the MAP and of the Laplace predictive with Lanczos posterior
-samples), on their synthetic classification stand-in.
+samples) and ``plot_callibration_loss.py`` (the calibration loss on a grid
+of ``log alpha``, ``--num_loss_samples`` probe sets each, and its figure),
+on their synthetic classification stand-in.
 
 ``python -m lanczos_adjoints_tpu_torch.train.laplace
-{callibration,callibration_diag,compute_metrics_lanczos} ...`` takes the
-JAX drivers' arguments; ``--device`` (default ``cuda``) replaces
+{callibration,callibration_diag,compute_metrics_lanczos,gridsearch} ...``
+takes the JAX drivers' arguments; ``--device`` (default ``cuda``) replaces
 ``--cpu`` and ``--out DIR`` the results directory mirrored from the
 script's path, where the ``.npy`` and ``.json`` files keep the JAX
 names. ``--fixture PATH`` takes the data, the initial parameters and the
@@ -18,8 +20,11 @@ probes or draws (with the sampler's Ritz-vector signs) from a fixture of
 the JAX drivers' own
 (``laplace_s1.npz``, written by ``scripts/export_laplace_s1.py``)
 instead of drawing them with numpy and ``torch.Generator`` from
-``--seed``. ``--time`` prints the device's time per calibration
-``value_and_grad`` by CUDA events.
+``--seed``; ``gridsearch`` then evaluates at the calibration run's MAP
+vector on the grid search's own probes. ``gridsearch --figures DIR``
+draws the loss against alpha, the calibrated alpha of ``--calibrated
+PATH`` overlaid, where matplotlib is installed. ``--time`` prints the
+device's time per calibration ``value_and_grad`` by CUDA events.
 
 Adam (``train_map``) and RMSprop are written out to optax's formulas and
 defaults: ``torch.optim.RMSprop`` decays by 0.99 and adds eps outside the
@@ -27,6 +32,7 @@ square root, optax by 0.9 and inside.
 """
 
 import argparse
+import importlib.util
 import json
 import os
 from pathlib import Path
@@ -67,6 +73,24 @@ def metric_tolerances(fix) -> np.ndarray:
 def metric_spread(fix) -> np.ndarray:
     """The JAX float32 run's metrics against its float64 run's, each at its own signs."""
     return np.abs(fix["metrics"] - fix["metrics_f64"])
+
+
+def jax_float32_dot_bias(probes) -> np.ndarray:
+    """What the JAX package's float32 SLQ calibration loss on the CPU adds by
+    one rounded sum, per probe set ``probes`` (``(..., S, P)`` Rademacher signs).
+
+    Its Arnoldi (``krylov/arnoldi.py::_forward``) divides the unit probe
+    ``v`` by ``sqrt(jnp.dot(v, v))``, and XLA's CPU float32 dot sums the P
+    equal squares in order: at P = 3,709 the sum is ``1 - 3.2e-5``, the
+    first Krylov vector's squared norm ``1 + 3.2e-5``, and each probe's
+    quadratic form ``P e1^T log(T) e1`` is ``-P log(sum)`` (~0.119) too
+    large. Returns that term averaged over the S probes, the ordered sum
+    taken again with numpy's ``cumsum`` (``(...)``).
+    """
+    signs = np.asarray(probes, dtype=np.float32)
+    v = signs / np.linalg.norm(signs, axis=-1, keepdims=True).astype(np.float32)
+    ordered = np.cumsum(v * v, axis=-1, dtype=np.float32)[..., -1].astype(np.float64)
+    return np.mean(-signs.shape[-1] * np.log(ordered), axis=-1)
 
 
 def relative_ritz_gaps(ritz_values) -> np.ndarray:
@@ -285,13 +309,21 @@ def compute_metrics(apply, unflatten, params_vec, x, y, x_ood, *, key, alpha=1.0
 # The command line
 # ---------------------------------------------------------------------------
 
-COMMANDS = ("callibration", "callibration_diag", "compute_metrics_lanczos")
+COMMANDS = ("callibration", "callibration_diag", "compute_metrics_lanczos", "gridsearch")
+GRID_LOG_ALPHAS = (-2.0, -1.5, -1.0, -0.5, 0.0, 0.5, 1.0, 1.5, 2.0)
 
 
 def build_argparser(parser, command):
     """The JAX driver's arguments, less ``--cpu``, plus ``--device``, ``--out`` and ``--fixture``."""
     parser.add_argument("--seed", type=int, default=1)
-    if command == "callibration":
+    if command == "gridsearch":
+        parser.add_argument("--log_alphas", type=float, nargs="+", default=list(GRID_LOG_ALPHAS))
+        parser.add_argument("--num_loss_samples", type=int, default=5)
+        parser.add_argument("--figures", type=str, default=None,
+                            help="draw the loss against alpha into this directory (needs matplotlib)")
+        parser.add_argument("--calibrated", type=str, default=None,
+                            help="the s{seed}_alpha.npy of a callibration run, overlaid on the figure")
+    elif command == "callibration":
         parser.add_argument("--num_epochs", type=int, default=50)
         parser.add_argument("--lanczos_rank", type=int, default=10)
         parser.add_argument("--slq_num_samples", type=int, default=10)
@@ -309,7 +341,7 @@ def build_argparser(parser, command):
         parser.add_argument("--alpha", type=float, default=1.0)
         parser.add_argument("--lanczos_rank", type=int, default=20)
         parser.add_argument("--num_samples", type=int, default=16)
-    if command != "callibration_diag":
+    if command not in ("callibration_diag", "gridsearch"):
         parser.add_argument("--hidden", type=str, default="",
                             help="comma-separated MLP widths; '2048,1536' with --data_dim 256 "
                             "--num_classes 10 has 3,688,970 parameters")
@@ -384,16 +416,106 @@ def time_step(args, apply, unflatten, params_vec, x, y):
     return events_ms(step, 3)
 
 
+@requires_float32
+@torch.no_grad()
+def gridsearch(apply, unflatten, params_vec, x, y, log_alphas, *, num_loss_samples=5, probes=None,
+               generator=None):
+    """``plot_callibration_loss.py``'s grid: the SLQ calibration loss at each
+    ``log_alphas`` entry, ``num_loss_samples`` times, on ``probes[i, j]``
+    (``(alphas, samples, S, P)``) or on draws from ``generator``.
+
+    Returns ``(values, losses, stds)``: each evaluation ``(alphas,
+    samples)``, and their means and (population) standard deviations.
+    """
+    loss = bnn.callibration_loss(apply, unflatten, torch.exp, params_vec.shape[0])
+    values = np.zeros((len(log_alphas), num_loss_samples))
+    for i, log_alpha in enumerate(log_alphas):
+        log_alpha_t = torch.tensor(log_alpha, dtype=params_vec.dtype, device=params_vec.device)
+        for j in range(num_loss_samples):
+            key = generator if probes is None else probes[i, j]
+            values[i, j] = float(loss(log_alpha_t, params_vec, x, y, key))
+        print(f"alpha {float(np.exp(log_alpha)):.3f}: loss {values[i].mean():.2f} +- {values[i].std():.2f}",
+              flush=True)
+    return values, values.mean(axis=1), values.std(axis=1)
+
+
+def plot_gridsearch(log_alphas, losses, stds, figures, *, seed=1, calibrated=None):
+    """The loss against alpha with its standard deviation, the calibrated alpha
+    (``calibrated``, a ``s{seed}_alpha.npy``) overlaid where it exists:
+    ``{figures}/s{seed}_callibration_loss.{pdf,png}``. Imports matplotlib."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(5, 3.2), constrained_layout=True)
+    ax.errorbar(np.exp(np.asarray(log_alphas)), losses, yerr=stds, marker="o", lw=1.2, capsize=3)
+    ax.set_xscale("log")
+    ax.set_xlabel(r"prior precision $\alpha$")
+    ax.set_ylabel("calibration loss (-log marginal)")
+    ax.set_title("Laplace calibration loss vs prior precision")
+    if calibrated is not None and os.path.exists(calibrated):
+        alpha_star = float(np.load(calibrated))
+        ax.axvline(alpha_star, color="tab:red", ls="--", lw=1.0)
+        ax.annotate(f"calibrated {alpha_star:.2f}", (alpha_star, max(losses)), color="tab:red", fontsize=8,
+                    rotation=90, va="top", ha="right")
+    os.makedirs(figures, exist_ok=True)
+    paths = [f"{figures}/s{seed}_callibration_loss.pdf", f"{figures}/s{seed}_callibration_loss.png"]
+    fig.savefig(paths[0])
+    fig.savefig(paths[1], dpi=150)
+    plt.close(fig)
+    print(f"wrote {figures}/s{seed}_callibration_loss.[pdf|png]")
+    return paths
+
+
+def _grid_probes(args, fix):
+    """The fixture's probe sets for ``args.log_alphas``, ``(alphas, samples, S, P)``, or None."""
+    if fix is None:
+        return None
+    grid, known = fix["grid_probes"], fix["grid_log_alphas"].tolist()
+    if any(a not in known for a in args.log_alphas) or args.num_loss_samples > grid.shape[1]:
+        msg = f"the fixture holds the probes of log_alphas {known} x {grid.shape[1]} samples only"
+        raise ValueError(msg)
+    return torch.tensor(grid[[known.index(a) for a in args.log_alphas]], device=args.device)
+
+
+def _run_gridsearch(args, probes, apply, unflatten, params_vec, x, y) -> dict:
+    values, losses, stds = gridsearch(
+        apply, unflatten, params_vec, x, y, args.log_alphas, num_loss_samples=args.num_loss_samples,
+        probes=probes, generator=torch.Generator(device=args.device).manual_seed(args.seed),
+    )
+    np.savez(f"{args.out}/s{args.seed}_gridsearch.npz", log_alphas=np.asarray(args.log_alphas), losses=losses,
+             stds=stds)
+    result = {"values": values, "losses": losses, "stds": stds}
+    if args.figures:
+        if importlib.util.find_spec("matplotlib") is None:
+            print("matplotlib is not installed: no figure", flush=True)
+        else:
+            result["figures"] = plot_gridsearch(args.log_alphas, losses, stds, args.figures, seed=args.seed,
+                                                calibrated=args.calibrated)
+    return result
+
+
 def run(command, args) -> dict:
     """One driver, as ``python -m lanczos_adjoints_tpu_torch.train.laplace COMMAND``."""
     fix = fixture(args.fixture) if args.fixture else None
+    probes = _grid_probes(args, fix) if command == "gridsearch" else None
     apply, unflatten, params_vec, x, y, x_ood = problem(args, command, fix)
     n_params = params_vec.shape[0]
-    params_vec, map_loss = train_map(apply, params_vec, unflatten, x, y,
-                                     num_epochs=getattr(args, "map_epochs", 200))
-    print(f"MAP training loss: {map_loss:.4f}, n_params={n_params}", flush=True)
+    if command == "gridsearch" and fix is not None:
+        # The grid search evaluates at the calibration run's MAP, which the
+        # fixture holds: no training.
+        params_vec = bnn.params_from_jax(fix["calib_map"], device=args.device)
+        map_loss = float(fix["calib_map_loss"])
+        print(f"MAP from the fixture, training loss {map_loss:.4f}, n_params={n_params}", flush=True)
+    else:
+        params_vec, map_loss = train_map(apply, params_vec, unflatten, x, y,
+                                         num_epochs=getattr(args, "map_epochs", 200))
+        print(f"MAP training loss: {map_loss:.4f}, n_params={n_params}", flush=True)
     os.makedirs(args.out, exist_ok=True)
     result = {"n_params": n_params, "map_loss": map_loss, "params_map": params_vec}
+    if command == "gridsearch":
+        return {**result, **_run_gridsearch(args, probes, apply, unflatten, params_vec, x, y)}
     if command == "compute_metrics_lanczos":
         key, signs = torch.Generator(device=args.device).manual_seed(args.seed), None
         if fix is not None:

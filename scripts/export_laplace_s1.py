@@ -1,10 +1,10 @@
 """Export the JAX linearised-Laplace drivers' seed-1 draws and results as a fixture.
 
-Runs the three drivers of ``experiments/applications/linearised_laplace/``
-(``callibration.py --num_epochs 3``, ``callibration_diag.py --num_epochs 10``
-and ``compute_metrics_lanczos.py``, seed 1, the parity MLP of 3,709
-parameters) with the JAX package on the CPU, and writes what the PyTorch
-port needs to be held to them without JAX:
+Runs the four drivers of ``experiments/applications/linearised_laplace/``
+(``callibration.py --num_epochs 3``, ``callibration_diag.py --num_epochs 10``,
+``compute_metrics_lanczos.py`` and ``plot_callibration_loss.py``, seed 1,
+the parity MLP of 3,709 parameters) with the JAX package on the CPU, and
+writes what the PyTorch port needs to be held to them without JAX:
 
 - the data of both drivers (``compute_metrics_lanczos.py`` splits its key
   five ways, so its ``x`` is not ``callibration.py``'s), the flax initial
@@ -14,6 +14,14 @@ port needs to be held to them without JAX:
   draws of ``lanczos_sampler``;
 - the drivers' outputs: both calibration curves and alphas, the MAP and
   Laplace metrics;
+- the grid search of ``plot_callibration_loss.py`` (its default 9
+  ``log_alphas`` x 5 loss samples, from the calibration run's MAP vector):
+  the Rademacher probes of each of its 45 loss evaluations
+  (``grid_probes``, ``(9, 5, 10, P)`` int8 signs, drawn by its own key
+  splits, ``plot_callibration_loss.py:55-58``), each evaluation's loss
+  (``grid_values``), their means and standard deviations
+  (``grid_losses``, ``grid_stds``: the driver's ``s1_gridsearch.npz``),
+  and the same 45 evaluations in float64 (``grid_*_f64``);
 - the sign of each Ritz vector of each of ``lanczos_sampler``'s samples
   (``(num_samples, lanczos_rank)``, int8), relative to the port's
   convention (``models/bnn.py::_fixed_signs``: the largest-magnitude entry
@@ -57,6 +65,8 @@ PREDICTIVES = ("map", "laplace")
 SEED = 1
 CALIB_EPOCHS = 3
 DIAG_EPOCHS = 10
+GRID_LOG_ALPHAS = (-2.0, -1.5, -1.0, -0.5, 0.0, 0.5, 1.0, 1.5, 2.0)
+GRID_SAMPLES = 5
 
 
 def _driver(name):
@@ -74,8 +84,16 @@ def _run_driver(name, *argv):
         exp_util, "matching_directory", lambda *_a, **_k: out + "/"
     ), mock.patch.object(sys, "argv", [f"{name}.py", *argv]):
         runpy.run_path(str(DRIVERS / f"{name}.py"), run_name="__main__")
-        return {p.name: (json.loads(p.read_text()) if p.suffix == ".json" else np.load(p))
-                for p in Path(out).iterdir()}
+        return {p.name: _load(p) for p in Path(out).iterdir() if p.suffix in (".json", ".npy", ".npz")}
+
+
+def _load(path):
+    if path.suffix == ".json":
+        return json.loads(path.read_text())
+    if path.suffix == ".npz":
+        with np.load(path) as data:
+            return {name: data[name] for name in data.files}
+    return np.load(path)
 
 
 def _signs(probes):
@@ -102,6 +120,19 @@ def _calibration_curve(jax, jnp, bnn, optax, apply, unflatten, map_vec, x, y, pr
         log_alpha = optax.apply_updates(log_alpha, updates)
         curve.append(float(value))
     return np.asarray(curve), float(jnp.exp(log_alpha))
+
+
+def _grid_values(jax, jnp, bnn, apply, unflatten, map_vec, x, y, probes):
+    """``plot_callibration_loss.py``'s loss at each ``GRID_LOG_ALPHAS`` entry and
+    each of its probe sets ``probes[i, j]``: ``(alphas, samples)``, the probes
+    in the key's place as in ``_calibration_curve``."""
+    loss = bnn.callibration_loss(apply, unflatten, jnp.exp, len(map_vec))
+    with mock.patch.object(jax.random, "rademacher", lambda key, _shape, dtype: key.astype(dtype)):
+        loss_jit = jax.jit(loss).lower(jnp.asarray(0.0, map_vec.dtype), map_vec, x, y,
+                                       jnp.asarray(probes[0, 0], map_vec.dtype)).compile()
+    return np.asarray([[float(loss_jit(jnp.asarray(log_alpha, map_vec.dtype), map_vec, x, y,
+                                       jnp.asarray(sample, map_vec.dtype))) for sample in row]
+                       for log_alpha, row in zip(GRID_LOG_ALPHAS, probes)])
 
 
 def _ritz(jnp, jax, bnn, ggn_vp, eps, rank, map_vec, samples):
@@ -186,6 +217,7 @@ def export() -> dict:
                                  "--cpu"),
             "diag": _run_driver("callibration_diag", "--seed", str(SEED), "--num_epochs", str(DIAG_EPOCHS)),
             "metrics": _run_driver("compute_metrics_lanczos", "--seed", str(SEED), "--cpu"),
+            "grid": _run_driver("plot_callibration_loss", "--seed", str(SEED)),
         }
     finally:
         sys.path.remove(str(DRIVERS))
@@ -200,6 +232,7 @@ def export() -> dict:
     map_vec, map_loss = calib.train_map(key, apply, params_vec, unflatten, x, y, num_epochs=200)
     n_params = len(params_vec)
     sampler = sampler_rademacher(jnp.ones((n_params,), dtype=float), num=10)
+    grid_key = key
     probes = []
     for _ in range(CALIB_EPOCHS):
         key, subkey = jax.random.split(key)
@@ -224,6 +257,31 @@ def export() -> dict:
         calib_alpha=runs["calib"][f"s{SEED}_alpha.npy"],
         diag_probes=_signs(diag_probes), diag_curve=runs["diag"][f"s{SEED}_curve.npy"],
         diag_alpha=runs["diag"][f"s{SEED}_alpha.npy"],
+    )
+
+    # plot_callibration_loss.py: the calibration run's data and MAP, its own
+    # probe draws (one key split per loss evaluation).
+    grid_probes = []
+    for _ in GRID_LOG_ALPHAS:
+        row = []
+        for _ in range(GRID_SAMPLES):
+            grid_key, subkey = jax.random.split(grid_key)
+            row.append(sampler(subkey))
+        grid_probes.append(row)
+    grid_probes = _signs(grid_probes)
+    values32 = _grid_values(jax, jnp, bnn, apply, unflatten, map_vec, x, y, grid_probes)
+    driver_grid = runs["grid"][f"s{SEED}_gridsearch.npz"]
+    if not (np.array_equal(driver_grid["log_alphas"], GRID_LOG_ALPHAS)
+            and np.allclose(values32.mean(axis=1), driver_grid["losses"], rtol=1e-6)
+            and np.allclose(values32.std(axis=1), driver_grid["stds"], rtol=1e-4, atol=1e-6)):
+        msg = f"the replicated grid search {values32} differs from the driver's {driver_grid}"
+        raise RuntimeError(msg)
+    with jax.enable_x64(True):
+        values64 = _grid_values(jax, jnp, bnn, apply, unflatten, f64(map_vec), f64(x), f64(y), grid_probes)
+    out.update(
+        grid_log_alphas=np.asarray(GRID_LOG_ALPHAS), grid_probes=grid_probes, grid_values=values32,
+        grid_losses=driver_grid["losses"], grid_stds=driver_grid["stds"], grid_values_f64=values64,
+        grid_losses_f64=values64.mean(axis=1), grid_stds_f64=values64.std(axis=1),
     )
 
     # compute_metrics_lanczos.py: its own five-way split.
@@ -266,6 +324,8 @@ def main(argv=None) -> int:
     print(f"calibration curve {arrays['calib_curve']}, alpha {float(arrays['calib_alpha']):.6f}; in float64 "
           f"{arrays['calib_curve_f64']}, alpha {float(arrays['calib_alpha_f64']):.6f}")
     print(f"diagonal curve {arrays['diag_curve'][[0, -1]]}, alpha {float(arrays['diag_alpha']):.6f}")
+    print(f"grid search losses {arrays['grid_losses']}, stds {arrays['grid_stds']}; in float64 "
+          f"{arrays['grid_losses_f64']}, {arrays['grid_stds_f64']}")
     for row, name in enumerate(PREDICTIVES):
         print(name, dict(zip(METRICS, arrays["metrics"][row].round(6))),
               "f32-vs-f64 spread", dict(zip(METRICS, spread[row])))
