@@ -19,7 +19,7 @@ Phases, in order:
   4. the oracle: at N = 2,048 the Krylov marginal likelihood against a
      dense Cholesky one, and its gradient through the kernels against
      the gradient through the plain versions;
-  5. the slice: 3 epochs of the GP training step at N_train = 400,000
+  5. the slice: 2 epochs (cut from 3) of the GP training step at N_train = 400,000
      (the reference's largest configuration) from the JAX ``adj400k``
      run's initial parameters (``train.gp.ADJ400K_INIT``), on that run's
      own split and probes (``train.gp.JaxDraws``, 5 host batches of 3
@@ -27,7 +27,7 @@ Phases, in order:
      loss within 1e-4 of the run's, 10 CG steps and its ``slq_std_rels``
      within 1 %; the parameters and Adam's moments after epoch 1 within
      1e-4 of ``ckpt_00000001``'s (each entry over its array's largest);
-     epochs 1-2 within 5e-4 (``results/.../adj400k_synthetic_gp500k_s1_*.npy``);
+     epoch 1 within 5e-4 (``results/.../adj400k_synthetic_gp500k_s1_*.npy``);
      then the driver: ``train.gp.run`` at the ``adj400k`` arguments with
      no epoch, from that run's final parameters (its ``params_opt``), on
      its split and ``mll_eval`` probes: the pivoted Cholesky at 400,000,
@@ -92,7 +92,7 @@ Phases, in order:
      from the JAX run's flax weights (``train/pde_s1.npz``) at 32 x 32
      (Arnoldi depth 4, 4 epochs: each loss and the learned field within
      1e-4 of the committed series), and at 128 x 128 with Arnoldi depth 10
-     and Euler with 40 matvecs (5 epochs each: epoch 0 within 1e-3 of the
+     and Euler with 40 matvecs (3 of the 5 epochs each: epoch 0 within 1e-3 of the
      committed TPU series, every epoch within the larger of 1e-3 and 10x
      JAX's float32-vs-float64 spread of its float32 CPU run), the matvecs,
      the four files, epoch wall times;
@@ -174,13 +174,28 @@ Phases, in order:
      float32-vs-float64 spread of its float32 run, each std within 1e-2,
      the committed TPU ``s1_gridsearch.npz`` beside without a gate;
  29. ``python -m lanczos_adjoints_tpu_torch.train.laplace callibration``
-     at ``FULL_WIDTH_ARGS`` (3,688,970 parameters, 15 of its 30 epochs) on the
+     at ``FULL_WIDTH_ARGS`` (3,688,970 parameters, 10 of its 30 epochs) on the
      port's own data: finite, the final loss under half the first, one
      float32 step within 1e-3 (loss) and 1e-2 (d/dlog alpha) of float64,
      one finite step at rank 50, the time per epoch by CUDA events, a
      profiled epoch and the peak memory. Phases 24-25 fail on any tensor
-     off the card and on any launch of K1-K11. The kernels
-     of every slice, with their numbers, form one JSON line.
+     off the card and on any launch of K1-K11;
+ 30. ``[slice-gp-report]`` (right after phase 5's driver run, on its
+     files): ``train.gp_report``'s table with the card's name as the
+     label, the run's RMSE and NLL in its row;
+ 31. the paper's studies (``studies/``) at their JAX scripts' defaults:
+     ``[study-orthogonality]`` (float64 on the card, the rows of n = 4,
+     8, 12 within 10x JAX's one-ulp spread of the committed rows),
+     ``[study-wall-times]`` (Lanczos, Lanczos re-orthogonalised and
+     Arnoldi at the 128 x 128 Laplacian, K = 10-250: the dispatch of each
+     series, the launches of one call per depth and series against the
+     prediction, finite times, finite values where backprop runs),
+     ``[study-vjp-matvec]`` (the JAX script's 1e-3 between the two
+     gradients), ``[study-mll]`` (both policies, agreeing within 1e-3)
+     and ``[study-gram-matvec]`` (K1 once at each N, within 1e-4 of the
+     plain policies that ran; a plain policy out of memory is recorded as
+     failed). Every phase prints its wall time (``[phase-time]``). The
+     kernels of every slice, with their numbers, form one JSON line.
 Every profiled run prints the profiler's launch count of each of the
 port's kernels beside the registry's, and flags a kernel whose launches
 the profiler missed (its busy time is then a lower bound, its idle share
@@ -196,6 +211,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -259,8 +275,9 @@ TOL_LATER_EPOCHS = 5e-4
 TOL_JAX_RUN = 1e-3
 DEVICE = "cuda"
 # [slice-laplace-full]'s calibration epochs at full width (the JAX run took 30;
-# the curve falls under half its first value by epoch 10).
-LAPLACE_FULL_EPOCHS = 15
+# its curve falls under half its first value by epoch 4). 10, cut from 15 to
+# leave the studies' phases room in the run's time.
+LAPLACE_FULL_EPOCHS = 10
 # The sparse slice: bench.py's Lanczos depth, its 128 x 128 grid and the
 # 1024 x 1024 grid (the largest DIA case the JAX package was run at).
 DEPTH = 90
@@ -555,7 +572,7 @@ def _adj400k_args(*extra):
         [*train_gp.ADJ400K_ARGS, "--device", DEVICE, *extra])
 
 
-def phase_slice(n_train, epochs=3):
+def phase_slice(n_train, epochs=2):
     """Epochs of the training step at the reference's largest configuration,
     from the JAX adj400k run's initial parameters, on that run's own split and
     probes (``train.gp.JaxDraws``: 5 host batches of 3 probes an epoch): the
@@ -726,7 +743,7 @@ def phase_slice_auto(n=16_000, partitions=(1, 8), big=N_TRAIN, big_partitions=50
     return report
 
 
-def phase_slice_driver():
+def phase_slice_driver(results_dir):
     """The driver's evaluation at the adj400k configuration, at the JAX run's
     final parameters, on its split and with its ``mll_eval`` probes
     (``train.gp.JaxDraws``): ``train.gp.run`` with no epoch, through the
@@ -734,10 +751,8 @@ def phase_slice_driver():
     400,000 cross product) and ``mll_eval`` on the test set; test RMSE and
     NLL within ``TOL_JAX_RUN`` of the JAX run's, the eleven series written.
     K1 launches are tallied by shape (rows, columns, m) with their wall
-    time, each launch synchronised before and after."""
-    import os
-    import tempfile
-
+    time, each launch synchronised before and after. The series go to
+    ``results_dir``, which ``[slice-gp-report]`` reads."""
     from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
     from lanczos_adjoints_tpu_torch.ops import native
     from lanczos_adjoints_tpu_torch.train import gp as train_gp
@@ -761,22 +776,21 @@ def phase_slice_driver():
         by_shape[key] = (count + 1, seconds + time.perf_counter() - t0)
         return out
 
-    with tempfile.TemporaryDirectory() as out:
-        args = _adj400k_args("--num_epochs", "0", "--out", out)
-        fg.gram_matvec_rows = tallied
-        native.reset_launches()
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            result = train_gp.run(args, solver_mode="adaptive", params0=params0,
-                                  draws=train_gp.JaxDraws(device=DEVICE))
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-        finally:
-            fg.gram_matvec_rows = launch
-        counts = _launches(("gram_matvec", "gram_grads"))
-        files = sorted(os.listdir(out))
-        saved = np.load(f"{result.path}_params_opt.npy")
+    args = _adj400k_args("--num_epochs", "0", "--out", results_dir)
+    fg.gram_matvec_rows = tallied
+    native.reset_launches()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = train_gp.run(args, solver_mode="adaptive", params0=params0,
+                              draws=train_gp.JaxDraws(device=DEVICE))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        fg.gram_matvec_rows = launch
+    counts = _launches(("gram_matvec", "gram_grads"))
+    files = sorted(os.listdir(results_dir))
+    saved = np.load(f"{result.path}_params_opt.npy")
     names = sorted(f"adj400k_synthetic_gp500k_s1_{name}.npy" for name in train_gp.RESULTS)
     gaps = {"rmse": result.test_rmse / want["rmse"] - 1.0, "nll": result.test_nll / want["nll"] - 1.0}
     steps = {"predict_mean": float(result.predict_info["solve"]["num_steps"]),
@@ -2224,7 +2238,9 @@ def phase_slice_pde(resolution=PDE_GRID, steps=PDE_STEPS):
 # The PDE drivers (train.pde, pde_workprecision, pde_data), held to the JAX
 # drivers' CPU runs (train/pde_s1.npz) and to the committed series where
 # those reproduce: (resolution, method, num_matvecs, epochs).
-PDE_DRIVER_RUNS = ((32, "arnoldi", 4, 4), (128, "arnoldi", 10, 5), (128, "euler", 40, 5))
+# 128 x 128 runs 3 of the fixture's 5 epochs, to leave the studies' phases room
+# in the run's time (the width, 80 pairs at 128 x 128, is the JAX run's).
+PDE_DRIVER_RUNS = ((32, "arnoldi", 4, 4), (128, "arnoldi", 10, 3), (128, "euler", 40, 3))
 # 32 x 32: each loss and the learned field (over its largest value) against
 # the committed series, which the JAX package reproduces on the CPU within
 # 1.9e-7. 128 x 128: epoch 0 against the committed (TPU) series, every epoch
@@ -2271,8 +2287,6 @@ def phase_slice_pde_driver(runs=PDE_DRIVER_RUNS):
     flax weights at each of ``runs``: the losses against the committed series
     and JAX's float32 and float64 CPU runs, the matvecs, the learned field,
     the epoch wall times."""
-    import tempfile
-
     from lanczos_adjoints_tpu_torch.ops import native
     from lanczos_adjoints_tpu_torch.train import pde as train_pde
 
@@ -2342,7 +2356,6 @@ def phase_slice_pde_workprecision(resolution=64):
     committed float64 ``workprecision_x64_s1.json``; the committed float32
     file (TPU) printed beside, without a gate."""
     import argparse
-    import tempfile
 
     from lanczos_adjoints_tpu_torch.ops import native
     from lanczos_adjoints_tpu_torch.train import pde as train_pde
@@ -2405,7 +2418,6 @@ def phase_slice_pde_data(resolution=128, num_data=80):
     then RK4 from the bundled inputs and parameter against the bundled targets,
     missing them by JAX's own miss."""
     import argparse
-    import tempfile
 
     from lanczos_adjoints_tpu_torch.ops import native
     from lanczos_adjoints_tpu_torch.train import pde as train_pde
@@ -3512,7 +3524,6 @@ def phase_slice_laplace_grid():
     search's own): the 9 x 5 losses against JAX's float64 and float32 CPU runs,
     the committed TPU ``s1_gridsearch.npz`` printed beside, without a gate."""
     import argparse
-    import tempfile
 
     from lanczos_adjoints_tpu_torch.ops import native
     from lanczos_adjoints_tpu_torch.train import laplace
@@ -3573,7 +3584,6 @@ def phase_slice_laplace_full():
     probes); one step at rank 50; the device's time per epoch (CUDA events),
     one profiled epoch and the peak memory."""
     import argparse
-    import tempfile
 
     from lanczos_adjoints_tpu_torch.models import bnn
     from lanczos_adjoints_tpu_torch.ops import native
@@ -3672,6 +3682,242 @@ def phase_slice_laplace_full():
             "profile": None if profile is None else {k: profile[k] for k in ("wall_ms", "busy_ms", "top")}}
 
 
+# The paper's studies (``lanczos_adjoints_tpu_torch.studies``), each run at its
+# JAX script's defaults; the wall-time sweeps at the 128 x 128 Laplacian.
+WALL_TIMES_SWEEPS = (("lanczos", "none"), ("lanczos", "full"), ("arnoldi", "none"))
+STUDY_N = 16_384  # the Gram VJP and MLL studies' N
+STUDY_GRAM_SIZES = (4096, 16_384, 65_536)
+# vmap against partitioned(16) in the MLL study: the same arithmetic in
+# another order, through 10 CG and 2 x 10 Lanczos steps in float32.
+TOL_MLL_POLICIES = 1e-3
+
+
+def phase_study_orthogonality():
+    """``studies.loss_of_orthogonality measure`` in float64 on the card, at
+    the JAX script's sizes; the rows of n = 4, 8, 12 held to the committed
+    JAX rows within 10x JAX's own one-ulp spread (C10), those of n = 16
+    and 24 to finite values and ``err_proj`` at most 2."""
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.studies import loss_of_orthogonality as study
+
+    print(f"[study-orthogonality] Arnoldi adjoint with and without re-projection against backprop on "
+          f"Hilbert matrices, float64 on the card, n in {study.SIZES}; rows held to the committed JAX rows "
+          f"within {study.SPREAD_FACTOR:.0f}x JAX's one-ulp spread, the others to finite values and err_proj "
+          f"at most {study.UNREFERENCED_PROJ_BOUND:g}", flush=True)
+    native.reset_launches()
+    with tempfile.TemporaryDirectory() as out:
+        start = time.perf_counter()
+        rows = study.main(["measure", "--device", DEVICE, "--out", out])
+        seconds = time.perf_counter() - start
+        files = sorted(os.listdir(out))
+    _no_kernel_launched("[study-orthogonality]")
+    failures = [] if files == ["orthogonality.json"] else [f"files {files}"]
+    for n, key, value, ref, tol, ok in study.check_rows(rows):
+        held = (f"JAX committed {ref:.4e}, gap {abs(value - ref):.3e}, tol {tol:.3e}" if ref is not None
+                else "no committed row: finite" + (f", at most {tol:g}" if np.isfinite(tol) else ""))
+        print(f"  n={n} {key}: {value:.4e} ({held}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"n={n} {key}")
+    print(f"  wall {seconds:.2f} s", flush=True)
+    if failures:
+        raise RuntimeError(f"study-orthogonality failed: {failures}")
+    return rows
+
+
+def _wall_times_events(which, reortho, custom):
+    prefix = ["tridiag:arnoldi_full"] if which == "lanczos" and reortho == "full" else []
+    if which == "lanczos" and reortho == "none":
+        return ["tridiag:dia_fused" if custom else "tridiag:generic"]
+    return sorted(prefix + ["hessenberg:dia_fused" if custom else "hessenberg:generic"])
+
+
+def phase_study_wall_times():
+    """``studies.wall_times_vjp benchmark`` at the 128 x 128 Laplacian and the
+    JAX script's depths for each of ``WALL_TIMES_SWEEPS``: dispatch, launches
+    of one call per depth and series against the prediction, finite times."""
+    from lanczos_adjoints_tpu_torch.studies import wall_times_vjp as study
+
+    totals, runs = {}, {}
+    for which, reortho in WALL_TIMES_SWEEPS:
+        tag = f"{which}_laplacian_2d_reortho_{reortho}"
+        print(f"[study-wall-times] {tag}, {study.GRID}x{study.GRID}: forward, closed-form VJP and "
+              f"backprop VJP (K <= 100) at K in {study.DEPTHS}, all-ones cotangent (CUDA events, median of "
+              f"{study.OUTER} runs of {study.REPS} calls)", flush=True)
+        with tempfile.TemporaryDirectory() as out:
+            start = time.perf_counter()
+            result = study.main(["benchmark", "--which", which, "--reortho", reortho, "--device", DEVICE,
+                                 "--depths", *map(str, study.DEPTHS), "--out", out])
+            seconds = time.perf_counter() - start
+            files = sorted(os.listdir(out))
+        failures = []
+        want_files = sorted(f"{tag}_{s}.npy" for s in ("depths", "dispatch", "times_autodiff", "times_custom",
+                                                          "times_fwdpass"))
+        if files != want_files:
+            failures.append(f"files {files}")
+        by_series = result["dispatch_by_series"]
+        want_events = {s: _wall_times_events(which, reortho, s != "autodiff") for s in study.SERIES}
+        print(f"  dispatch {by_series} (JAX's names {[study.JAX_EVENTS[e] for e in result['dispatch']]})",
+              flush=True)
+        if by_series != want_events:
+            failures.append(f"dispatch {by_series}, expected {want_events}")
+        for (depth, series), got in sorted(result["launches"].items()):
+            want = study.predicted_launches(which, reortho, depth, series)
+            if got != want:
+                failures.append(f"K={depth} {series} launches {got}, predicted {want}")
+            for name, count in got.items():
+                totals[name] = totals.get(name, 0) + count
+        times = result["times"]
+        for i, depth in enumerate(result["depths"]):
+            row = {s: times[s][i] * 1e3 for s in study.SERIES if i < len(times[s])}
+            calls = {s: result["launches"][(depth, s)] for s in row}
+            values = {s: result["values"][(depth, s)] for s in ("custom", "autodiff") if s in row}
+            # Values are held where backprop runs beside them; deeper, the
+            # float32 Arnoldi adjoint is an open question (ROADMAP) and is timed only.
+            gated = "autodiff" in values
+            finite = all(bool(torch.isfinite(g).all()) for vals in values.values() for g in vals)
+            text = ", ".join(f"{s} {ms:.3f} ms" for s, ms in row.items())
+            if "autodiff" in values:
+                gap = _rel_err(values["custom"][0], values["autodiff"][0])
+                text += f"; backprop/adjoint {row['autodiff'] / row['custom']:.2f}x, dv adjoint vs backprop {gap:.2e}"
+            text += f"; max|dv| {float(values['custom'][0].abs().max()):.4e}; launches {calls}"
+            print(f"  K={depth}: {text}{'' if gated else ' (values timed, not gated)'}",
+                  flush=True)
+            if not all(np.isfinite(ms) and ms > 0 for ms in row.values()):
+                failures.append(f"K={depth} times {row}")
+            if gated and not finite:
+                failures.append(f"K={depth} values not finite")
+        print(f"  wall {seconds:.2f} s", flush=True)
+        if failures:
+            raise RuntimeError(f"study-wall-times {tag} failed: {failures}")
+        runs[tag] = result["times"]
+    print(f"  launches over the three sweeps (one call per depth and series): {totals}", flush=True)
+    return {"launches": totals, "times": runs}
+
+
+def phase_study_vjp_matvec():
+    """``studies.vjp_through_matvec`` at its defaults (N = 16,384, d = 2):
+    the recomputing backward pass against autodiff, the JAX script's 1e-3."""
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.studies import vjp_through_matvec as study
+
+    print(f"[study-vjp-matvec] Gram matvec (rbf, N={STUDY_N}, d=2): autodiff through the plain policy against the "
+          f"recompute-in-backward Function, gradients within {study.TOL_AGREEMENT:.0e}", flush=True)
+    native.reset_launches()
+    with tempfile.TemporaryDirectory() as out:
+        results, _grads, rel = study.main(["--num_data", str(STUDY_N), "--device", DEVICE, "--out", out])
+        files = sorted(os.listdir(out))
+    _no_kernel_launched("[study-vjp-matvec]")
+    failures = [] if files == ["vjp_times.json"] else [f"files {files}"]
+    if not rel < study.TOL_AGREEMENT:
+        failures.append(f"agreement {rel:.3e}")
+    if [r["variant"] for r in results] != ["autodiff", "custom_vjp"] or not all(
+            np.isfinite(r["time_s"]) and r["time_s"] > 0 for r in results):
+        failures.append(f"results {results}")
+    print(f"  gradient agreement {rel:.3e}; " + ", ".join(f"{r['variant']} {r['time_s'] * 1e3:.3f} ms"
+                                                         for r in results), flush=True)
+    if failures:
+        raise RuntimeError(f"study-vjp-matvec failed: {failures}")
+    return results
+
+
+def phase_study_mll():
+    """``studies.value_and_grad_of_mll`` at its defaults (N = 16,384, d = 4, 10
+    matvecs, 2 samples): both policies, finite, and agreeing."""
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.studies import value_and_grad_of_mll as study
+
+    print(f"[study-mll] value_and_grad of the GP log-marginal likelihood (matern32, N={STUDY_N}, d=4, CG 10, SLQ 10 x "
+          "2 probes from numpy) under vmap and partitioned(16)", flush=True)
+    native.reset_launches()
+    with tempfile.TemporaryDirectory() as out:
+        results, outputs = study.main(["--num_data", str(STUDY_N), "--device", DEVICE, "--out", out])
+        files = sorted(os.listdir(out))
+    _no_kernel_launched("[study-mll]")
+    failures = [] if files == ["mll_times.json"] else [f"files {files}"]
+    if [r["policy"] for r in results] != ["vmap", "partitioned(16)"] or not all(
+            np.isfinite(r["time_s"]) and r["time_s"] > 0 for r in results):
+        failures.append(f"results {results}")
+    for name, (value, grads) in outputs.items():
+        print(f"  {name}: -logml {float(value):.6f}, grads "
+              f"{ {k: g.cpu().numpy().round(6).tolist() for k, g in grads.items()} }", flush=True)
+        if not (torch.isfinite(value) and all(bool(torch.isfinite(g).all()) for g in grads.values())):
+            failures.append(f"{name} not finite")
+    if len(outputs) == 2:
+        (v1, g1), (v2, g2) = outputs.values()
+        gaps = [abs(float(v2) / float(v1) - 1.0)] + [_rel_err(g2[k], g1[k]) for k in g1]
+        print(f"  partitioned vs vmap: value {gaps[0]:.3e}, grads {max(gaps[1:]):.3e} (tol {TOL_MLL_POLICIES:.0e})",
+              flush=True)
+        if not max(gaps) <= TOL_MLL_POLICIES:
+            failures.append(f"policies disagree {gaps}")
+    print("  " + ", ".join(f"{r['policy']} {r['time_s'] * 1e3:.1f} ms" for r in results), flush=True)
+    if failures:
+        raise RuntimeError(f"study-mll failed: {failures}")
+    return results
+
+
+def phase_study_gram_matvec():
+    """``studies.gram_matvec benchmark`` at its defaults (N = 4,096, 16,384,
+    65,536, d = 1): K1 at every N, held to the plain policies that ran."""
+    from lanczos_adjoints_tpu_torch.studies import gram_matvec as study
+
+    print(f"[study-gram-matvec] rbf Gram matvec, d=1, N in {STUDY_GRAM_SIZES}: vmap, partitioned(16) and K1 "
+          f"(CUDA events, median of {study.OUTER} runs of {study.REPS} matvecs; a plain policy out of memory is "
+          "recorded as failed)", flush=True)
+    with tempfile.TemporaryDirectory() as out:
+        rows, outputs, launches = study.main(["benchmark", "--data_sizes", *map(str, STUDY_GRAM_SIZES),
+                                              "--device", DEVICE, "--out", out])
+        table = study.show_table(out)
+    failures = []
+    for n in STUDY_GRAM_SIZES:
+        fused = outputs.get(("synthetic", n, study.FUSED))
+        if fused is None or launches.get(("synthetic", n)) != 1:
+            failures.append(f"N={n}: K1 did not run once ({launches.get(('synthetic', n))})")
+            continue
+        for policy in ("vmap", "partitioned(16)"):
+            plain = outputs.get(("synthetic", n, policy))
+            if plain is None:
+                print(f"  N={n} {policy}: failed (no output to hold K1 to)", flush=True)
+                continue
+            err = _rel_err(fused, plain)
+            _report(f"K1 vs {policy} N={n}", err, TOL_K1, failures)
+    if not all(np.isfinite(r["time_s"]) and r["time_s"] > 0 for r in rows):
+        failures.append("times")
+    print(f"  table rows {len(table.splitlines()) - 2}; K1 launches (one call a size) {launches}", flush=True)
+    if failures:
+        raise RuntimeError(f"study-gram-matvec failed: {failures}")
+    return {"rows": rows, "launches": sum(launches.values())}
+
+
+def phase_slice_gp_report(results, driver):
+    """``train.gp_report``'s table of the ``[slice-driver]`` run's files, its
+    rows labelled with the card's name, and the figure where matplotlib is."""
+    from lanczos_adjoints_tpu_torch.train import gp_report
+
+    label = torch.cuda.get_device_name(0)
+    print(f"[slice-gp-report] train.gp_report table --name adj400k on the [slice-driver] run's files, "
+          f"--label {label!r}", flush=True)
+    text = gp_report.show_table("adj400k", results, label=label)
+    rmse, nll = (f"{driver[key]:.3f} +/- 0.000" for key in ("test_rmse", "test_nll"))
+    want = f"{'synthetic_gp500k':>18} | {label:>22} | {rmse:>16} | {nll:>16} |"
+    if not any(line.startswith(want) for line in text.splitlines()):
+        raise RuntimeError(f"slice-gp-report: no row {want!r} in\n{text}")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print("  figure: matplotlib is not installed here; not drawn", flush=True)
+    else:
+        gp_report.plot_training("adj400k", results, results)
+    return text
+
+
+def _phase(fn, *args):
+    """``fn(*args)``, with its wall time printed after it."""
+    start = time.perf_counter()
+    out = fn(*args)
+    print(f"[phase-time] {fn.__name__}: {time.perf_counter() - start:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3682,44 +3928,57 @@ def main() -> int:
     from lanczos_adjoints_tpu_torch.utils.precision import pin_float32
 
     pin_float32()
-    phase_build()
-    phase_parity()
-    phase_oracle()
-    counts = phase_slice(N_TRAIN)
-    driver = phase_slice_driver()
-    phase_slice_auto()
-    phase_parity_dgrads()
-    dgrads = phase_slice_dgrads(N_TRAIN)
-    entries = phase_timing(N_TRAIN, counts, dgrads, driver)
-    phase_parity_dia()
-    phase_parity_lanczos()
-    slices = {m: phase_slice_sparse(m) for m in SLICE_GRIDS}
-    entries += phase_timing_sparse(slices)
-    phase_parity_arnoldi()
-    arnoldi_runs = {shape: phase_slice_arnoldi(*shape) for shape in ARNOLDI_SLICE}
-    slq_run = phase_slice_slq()
-    phase_slice_pde()
-    phase_slice_pde_driver()
-    phase_slice_pde_workprecision()
-    phase_slice_pde_data()
-    entries.append(phase_timing_arnoldi(arnoldi_runs))
-    phase_parity_bsr()
-    bsr_run = phase_slice_bsr()
-    entries.append(phase_timing_bsr(bsr_run))
-    phase_parity_halo()
-    halo_run = phase_slice_halo()
-    phase_slice_mesh(N_TRAIN)
-    entries.append(phase_timing_halo(halo_run))
-    phase_slice_laplace()
-    phase_slice_laplace_grid()
-    phase_slice_laplace_full()
+    _phase(phase_build)
+    _phase(phase_parity)
+    _phase(phase_oracle)
+    counts = _phase(phase_slice, N_TRAIN)
+    with tempfile.TemporaryDirectory() as driver_out:
+        driver = _phase(phase_slice_driver, driver_out)
+        _phase(phase_slice_gp_report, driver_out, driver)
+    _phase(phase_slice_auto)
+    _phase(phase_parity_dgrads)
+    dgrads = _phase(phase_slice_dgrads, N_TRAIN)
+    entries = _phase(phase_timing, N_TRAIN, counts, dgrads, driver)
+    _phase(phase_parity_dia)
+    _phase(phase_parity_lanczos)
+    slices = {m: _phase(phase_slice_sparse, m) for m in SLICE_GRIDS}
+    entries += _phase(phase_timing_sparse, slices)
+    _phase(phase_parity_arnoldi)
+    arnoldi_runs = {shape: _phase(phase_slice_arnoldi, *shape) for shape in ARNOLDI_SLICE}
+    slq_run = _phase(phase_slice_slq)
+    _phase(phase_slice_pde)
+    _phase(phase_slice_pde_driver)
+    _phase(phase_slice_pde_workprecision)
+    _phase(phase_slice_pde_data)
+    entries.append(_phase(phase_timing_arnoldi, arnoldi_runs))
+    _phase(phase_parity_bsr)
+    bsr_run = _phase(phase_slice_bsr)
+    entries.append(_phase(phase_timing_bsr, bsr_run))
+    _phase(phase_parity_halo)
+    halo_run = _phase(phase_slice_halo)
+    _phase(phase_slice_mesh, N_TRAIN)
+    entries.append(_phase(phase_timing_halo, halo_run))
+    _phase(phase_slice_laplace)
+    _phase(phase_slice_laplace_grid)
+    _phase(phase_slice_laplace_full)
+    _phase(phase_study_orthogonality)
+    wall_times = _phase(phase_study_wall_times)
+    _phase(phase_study_vjp_matvec)
+    _phase(phase_study_mll)
+    gram_study = _phase(phase_study_gram_matvec)
     main_arnoldi = arnoldi_runs[ARNOLDI_MAIN]["launches"]["fused"]
+    # The studies' launches: one call per depth and series of the three
+    # wall-time sweeps (K4-K7, K9), one matvec a size of the Gram study (K1).
+    studies = {**wall_times["launches"], "gram_matvec": gram_study["launches"]}
     for entry in entries:
         # The DIA kernels' launches in the Arnoldi adjoint (main path) and SLQ.
         if entry["name"] in ("dia_matvec", "dia_dvals"):
             key = "dia_matvec_transposed" if entry["name"] == "dia_matvec" else "dia_dvals"
             entry["launches_arnoldi_vjp"] = main_arnoldi[key]
             entry["launches_slq"] = slq_run["launches"][key]
+        entry["launches_studies"] = studies.get(entry["name"], 0)
+        if entry["name"] == "dia_matvec":
+            entry["launches_studies_transposed"] = studies.get("dia_matvec_transposed", 0)
     print(f"[total] {time.perf_counter() - start:.1f} s of wall time, the kernels' build included", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card)

@@ -24,6 +24,9 @@ Lanczos forward + adjoint VJP on a DIA operator:
                also over a mesh.
 - ``utils``:   float32 pinning, the synthetic dataset, the in-repo
                Laplacian and timing on the card.
+- ``studies``: the paper's studies (loss of orthogonality, VJP wall
+               times against backprop, the Gram VJP, the MLL, the Gram
+               matvec policies) on the card.
 """
 
 __version__ = "0.1.0"

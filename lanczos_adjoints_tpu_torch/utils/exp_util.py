@@ -22,9 +22,10 @@ import torch
 from lanczos_adjoints_tpu_torch.ops import sparse
 
 
-def hilbert(ndim: int, /):
-    """The Hilbert matrix: an ill-conditioned SPD test matrix."""
-    a = torch.arange(ndim)
+def hilbert(ndim: int, /, *, dtype=None, device=None):
+    """The Hilbert matrix ``1 / (1 + i + j)``: an ill-conditioned SPD test
+    matrix, computed in ``dtype`` (default: torch's default float dtype)."""
+    a = torch.arange(ndim, dtype=dtype or torch.get_default_dtype(), device=device)
     return 1.0 / (1.0 + a[:, None] + a[None, :])
 
 

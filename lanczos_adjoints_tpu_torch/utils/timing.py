@@ -25,6 +25,24 @@ def events_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def median_seconds(fn, *, device, reps: int, outer: int) -> float:
+    """Median over ``outer`` runs of the mean seconds of ``reps`` back-to-back calls of ``fn()``.
+
+    CUDA events (``events_ms``) on a card, a host clock elsewhere. Warm
+    ``fn`` up first.
+    """
+    runs = []
+    for _ in range(outer):
+        if torch.device(device).type == "cuda":
+            runs.append(events_ms(fn, reps) / 1e3)
+        else:
+            start = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            runs.append((time.perf_counter() - start) / reps)
+    return float(np.median(runs))
+
+
 def device_profile(fn):
     """Run ``fn()`` once under ``torch.profiler``.
 
