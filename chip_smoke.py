@@ -179,7 +179,7 @@ Phases, in order:
      float32 step within 1e-3 (loss) and 1e-2 (d/dlog alpha) of float64,
      one finite step at rank 50, the time per epoch by CUDA events, a
      profiled epoch and the peak memory. Phases 24-25 fail on any tensor
-     off the card and on any launch of K1-K11;
+     off the card and on any launch of K1-K12;
  30. ``[slice-gp-report]`` (right after phase 5's driver run, on its
      files): ``train.gp_report``'s table with the card's name as the
      label, the run's RMSE and NLL in its row;
@@ -194,8 +194,22 @@ Phases, in order:
      gradients), ``[study-mll]`` (both policies, agreeing within 1e-3)
      and ``[study-gram-matvec]`` (K1 once at each N, within 1e-4 of the
      plain policies that ran; a plain policy out of memory is recorded as
-     failed). Every phase prints its wall time (``[phase-time]``). The
-     kernels of every slice, with their numbers, form one JSON line.
+     failed);
+ 32. the sparse-format, roofline and scaling studies at their JAX
+     scripts' defaults: ``[study-dia-roofline]`` (K12, ``csrc/dia_ceiling.cu``,
+     at 128-1,024 threads a block against K4, the plain matvec and
+     cuSPARSE at n_side 1,024 and 2,048, L2-warm and L2-cold; K12 bit for
+     bit against its plain version at both sizes, at n % 4 != 0 and on
+     misaligned views; launches against the prediction; K4 L2-cold at
+     1024^2 within 20 % of its [timing-sparse] time), ``[study-spmv-formats]``
+     (every format row, K4 and K10 within 1e-5 of the plain rows, the
+     launches of each row's matvec and VJP as predicted) and
+     ``[study-multihost]`` (the K1 and K4 local tables, the link stand-ins
+     and the model on the card, then the measured path on 1-16 partitions
+     of one card, its dv and dvals within 10x the plain spread of the
+     unsharded fused route, 60 K11 launches a VJP). Every phase prints its
+     wall time (``[phase-time]``). The kernels of every slice, with their
+     numbers, form one JSON line.
 Every profiled run prints the profiler's launch count of each of the
 port's kernels beside the registry's, and flags a kernel whose launches
 the profiler missed (its busy time is then a lower bound, its idle share
@@ -3168,6 +3182,27 @@ def phase_parity_halo():
         raise RuntimeError(msg)
 
 
+def _halo_reference(mat, dia, vals, v0, depth):
+    """The unsharded fused route (K6/K7 on ``sparse_operator``) that the sharded
+    VJPs are held to: ``(estimate, (dv, dvals), (plain f32, plain f64), dispatch log)``,
+    the plain adjoint run in both precisions for the spread-derived limit."""
+    from lanczos_adjoints_tpu_torch.krylov import lanczos
+    from lanczos_adjoints_tpu_torch.ops import fused_lanczos as fl
+    from lanczos_adjoints_tpu_torch.ops import sparse
+
+    matvec_u, _vals_u = sparse.sparse_operator(mat, format="dia", device=DEVICE)
+    log_u = []
+    unsharded = lanczos.tridiag(matvec_u, depth, reortho="none", dispatch_log=log_u)
+    want_grads = _one_vjp(unsharded, v0, vals)
+    spreads = []
+    for dtype in (torch.float32, torch.float64):
+        xs, alphas, betas = fl.lanczos_forward_plain(dia.offsets, vals.to(dtype), v0.to(dtype), depth)
+        spreads.append(fl.lanczos_adjoint_plain(
+            dia.offsets, vals.to(dtype), xs, alphas, betas, 1.0 / torch.linalg.vector_norm(v0.to(dtype)),
+            torch.ones_like(xs), torch.ones_like(alphas), torch.ones_like(betas)))
+    return unsharded, want_grads, spreads, log_u
+
+
 def phase_slice_halo():
     """multihost_scaling's measured path through the port's entry points: the
     5-diagonal operator -> ``parallel.sharded_dia_operator`` ->
@@ -3175,7 +3210,6 @@ def phase_slice_halo():
     held to the unsharded fused route (K6/K7 on ``sparse_operator``)."""
     from lanczos_adjoints_tpu_torch import parallel
     from lanczos_adjoints_tpu_torch.krylov import lanczos
-    from lanczos_adjoints_tpu_torch.ops import fused_lanczos as fl
     from lanczos_adjoints_tpu_torch.ops import native, sparse
     from lanczos_adjoints_tpu_torch.utils import test_util
     from lanczos_adjoints_tpu_torch.utils.timing import events_ms
@@ -3188,16 +3222,7 @@ def phase_slice_halo():
     print(f"[slice-halo] 5-diagonal operator n={n} nnz={mat.nnz} offsets={dia.offsets} K={depth}, "
           f"meshes of {HALO_MESHES} partitions on one card, one VJP with the all-ones cotangent",
           flush=True)
-    matvec_u, _vals_u = sparse.sparse_operator(mat, format="dia", device=DEVICE)
-    log_u = []
-    unsharded = lanczos.tridiag(matvec_u, depth, reortho="none", dispatch_log=log_u)
-    want_grads = _one_vjp(unsharded, v0, vals)
-    spreads = []
-    for dtype in (torch.float32, torch.float64):
-        xs, alphas, betas = fl.lanczos_forward_plain(dia.offsets, vals.to(dtype), v0.to(dtype), depth)
-        spreads.append(fl.lanczos_adjoint_plain(
-            dia.offsets, vals.to(dtype), xs, alphas, betas, 1.0 / torch.linalg.vector_norm(v0.to(dtype)),
-            torch.ones_like(xs), torch.ones_like(alphas), torch.ones_like(betas)))
+    unsharded, want_grads, spreads, log_u = _halo_reference(mat, dia, vals, v0, depth)
     failures = [] if log_u == ["tridiag:dia_fused"] else [f"unsharded dispatch {log_u}"]
     want = {k: 0 for k in HALO_KERNELS}
     want["halo_dia_matvec"] = 2 * depth
@@ -3888,6 +3913,254 @@ def phase_study_gram_matvec():
     return {"rows": rows, "launches": sum(launches.values())}
 
 
+# The sparse-format and roofline studies (A17) and the scaling study (A18),
+# at their JAX scripts' defaults: the roofline at both committed sizes.
+ROOFLINE_SIDES = (1024, 2048)
+# K12 is held bit for bit to its plain version on these besides the
+# roofline's shapes: n % 4 != 0 (the scalar tail) at 5 diagonals.
+K12_TAIL_N = 1_000_003
+# K4 L2-cold in [study-dia-roofline] against its [timing-sparse] time.
+TOL_K4_AGREEMENT = 0.2
+TOL_FORMATS = 1e-5  # dia_kernel vs dia, bsr_kernel vs bsr (TOL_DIA, TOL_BSR)
+
+
+def _k12_bitwise(study, n, num_diags, rng, failures):
+    """K12 (``speed_of_light``) against ``dia_ceiling_plain``, bit for bit, at
+    every block size: aligned operands, x and the output one float off 16
+    bytes (the scalar loop), and the values one float off (their rows read as
+    scalars in the vector loop). Returns the largest absolute error."""
+    from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
+
+    x = _tensor(rng, n)
+    vals = _tensor(rng, (num_diags, n))
+    x_off = _offset_by_one(x)
+    vals_off = torch.empty(num_diags * n + 1, device=DEVICE)[1:].view(num_diags, n)
+    vals_off.copy_(vals)
+    worst = 0.0
+    for label, (xs, vs) in {"aligned": (x, vals), "x misaligned": (x_off, vals),
+                            "values misaligned": (x, vals_off)}.items():
+        want = fd.dia_ceiling_plain(xs, vs)
+        for threads in fd.CEILING_THREADS:
+            got = study.speed_of_light(n, num_diags, threads)(xs, vs)
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            if not torch.equal(got, want):
+                failures.append(f"K12 n={n} {label} threads={threads}: max abs err {err:.3e}")
+    print(f"  K12 n={n} D={num_diags}: aligned, x misaligned, values misaligned at threads "
+          f"{fd.CEILING_THREADS}: {'bit for bit' if worst == 0.0 else f'max abs err {worst:.3e}'}", flush=True)
+    return worst
+
+
+def _roofline_line(label, row):
+    return (f"{label} {row['time_s'] * 1e6:.2f} us L2-warm, {row['time_s_l2_cold'] * 1e6:.2f} us L2-cold "
+            f"({row['clock']})")
+
+
+def phase_study_dia_roofline(k4_timing_ms):
+    """``studies.dia_roofline`` at n_side 1024 and 2048: K12 at every block
+    size, K4, the plain matvec and cuSPARSE, L2-warm and L2-cold, with the
+    launches against the prediction; K12 bit for bit against its plain
+    version; K4 L2-cold at 1024^2 within 20 % of [timing-sparse]'s K4.
+    Returns K12's kernels-line entry."""
+    from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.studies import dia_roofline as study
+
+    print(f"[study-dia-roofline] K12 (csrc/dia_ceiling.cu) at threads {fd.CEILING_THREADS} against K4, plain "
+          f"and cuSPARSE at n_side {ROOFLINE_SIDES}; device time per call (events behind a held stream, {study.REPS} calls), "
+          f"L2-warm (one operand set) and L2-cold ({study.OPERAND_SETS} sets)", flush=True)
+    native.reset_launches()
+    artifacts = {}
+    with tempfile.TemporaryDirectory() as out:
+        for side in ROOFLINE_SIDES:
+            artifacts[side] = study.main(["--n_side", str(side), "--device", DEVICE, "--out", out])
+        files = sorted(os.listdir(out))
+    torch.cuda.synchronize()
+    counts = native.launch_counts()
+    want = {k: c * len(ROOFLINE_SIDES) for k, c in study.predicted_launches().items()}
+    got = {k: c for k, c in counts.items() if c}
+    failures = [] if files == sorted(f"dia_roofline_n{s}.json" for s in ROOFLINE_SIDES) else [f"files {files}"]
+    print(f"  launches {got} (predicted {want}) {'ok' if got == want else 'FAIL'}", flush=True)
+    if got != want:
+        failures.append(f"launches {got}")
+    for side, art in artifacts.items():
+        bound_us = 1e6 * art["bytes_per_matvec"] / PEAK_BYTES
+        print(f"  n_side={side}: n={art['n']} D={art['num_diags']} {art['bytes_per_matvec']} B "
+              f"({art['bytes_per_nnz']:.4f} B/nnz), bound {bound_us:.2f} us", flush=True)
+        for threads, row in art["ceiling"].items():
+            print("    " + _roofline_line(f"K12 threads={threads}:", row)
+                  + f", {100 * bound_us * 1e-6 / row['time_s_l2_cold']:.1f} % of the bound L2-cold", flush=True)
+        print("    " + _roofline_line("K12 plain:", art["ceiling_plain"]) + "; "
+              + _roofline_line("library x + vals.sum(0):", art["ceiling_library"]), flush=True)
+        for row in art["sweep"]:
+            print("    " + _roofline_line(f"{row['matvec']}:", row), flush=True)
+        for suffix, label in (("", "L2-warm"), ("_l2_cold", "L2-cold")):
+            ratio = art[f"pct_of_attainable{suffix}_unclamped"]
+            note = ("; the ceiling is no ceiling: the matvec beat K12" if ratio > 1.0 else "")
+            print(f"    {label}: pct_of_attainable {art[f'pct_of_attainable{suffix}']:.4f} (unclamped {ratio:.4f}, "
+                  f"best {art[f'best{suffix}']['matvec']}){note}", flush=True)
+        print(f"    hbm floor {art['hbm_floor_s'] * 1e6:.2f} us at {art['hbm_spec_gb_per_s']:.0f} GB/s; "
+              f"l2_resident_regime {art['l2_resident_regime']}", flush=True)
+        times = [r[k] for r in [*art["ceiling"].values(), art["ceiling_plain"], art["ceiling_library"],
+                                *art["sweep"]] for k in ("time_s", "time_s_l2_cold")]
+        if not all(np.isfinite(t) and t > 0 for t in times):
+            failures.append(f"n_side={side} times")
+    main = artifacts[ROOFLINE_SIDES[0]]  # the 1024^2 Laplacian, [timing-sparse]'s K4 shape
+    k4_cold_ms = 1e3 * next(r for r in main["sweep"] if r["matvec"] == "k4")["time_s_l2_cold"]
+    gap = abs(k4_cold_ms - k4_timing_ms) / k4_timing_ms
+    print(f"  K4 L2-cold at 1024^2: {k4_cold_ms * 1e3:.2f} us here, {k4_timing_ms * 1e3:.2f} us in [timing-sparse]: "
+          f"{100 * gap:.1f} % apart (limit {100 * TOL_K4_AGREEMENT:.0f} %) "
+          f"{'ok' if gap <= TOL_K4_AGREEMENT else 'FAIL'}", flush=True)
+    if not gap <= TOL_K4_AGREEMENT:
+        failures.append("K4 against [timing-sparse]")
+    rng = np.random.default_rng(19)
+    worst = max(_k12_bitwise(study, n, 5, rng, failures) for n in [s * s for s in ROOFLINE_SIDES] + [K12_TAIL_N])
+    if failures:
+        raise RuntimeError(f"study-dia-roofline failed: {failures}")
+    n, num_diags, nbytes = main["n"], main["num_diags"], main["bytes_per_matvec"]
+    bound_ms, by = _bound(nbytes, num_diags * n)
+    row = main["ceiling"]["256"]
+    return {
+        "name": "dia_ceiling", "route": "cuda", "source": "lanczos_adjoints_tpu_torch/csrc/dia_ceiling.cu",
+        "replaces": "experiments/benchmarks/spmv_formats/dia_roofline.py:62",
+        "launches": got.get("dia_ceiling", 0), "max_abs_err": worst,
+        "ms": 1e3 * row["time_s_l2_cold"], "ms_l2_warm": 1e3 * row["time_s"], "clock": row["clock"],
+        "plain_ms": 1e3 * main["ceiling_plain"]["time_s_l2_cold"], "bound_ms": bound_ms, "bound_by": by,
+        "library_ms": 1e3 * main["ceiling_library"]["time_s_l2_cold"],
+        "library_call": main["ceiling_library"]["calls"], "n": n, "threads": 256,
+        "by_threads": {side: {t: {"ms_l2_cold": 1e3 * r["time_s_l2_cold"], "ms_l2_warm": 1e3 * r["time_s"]}
+                              for t, r in art["ceiling"].items()} for side, art in artifacts.items()},
+        "bound_ms_by_side": {side: _bound(art["bytes_per_matvec"], art["num_diags"] * art["n"])[0]
+                             for side, art in artifacts.items()},
+        "pct_of_attainable": {side: {"l2_warm": art["pct_of_attainable_unclamped"],
+                                     "l2_cold": art["pct_of_attainable_l2_cold_unclamped"]}
+                              for side, art in artifacts.items()},
+        "launches_other": {k: c for k, c in got.items() if k != "dia_ceiling"},
+    }
+
+
+def phase_study_spmv_formats():
+    """``studies.spmv_formats`` at its defaults: every row timed, the kernels'
+    rows within 1e-5 of the plain ones (matvec and VJP in x), one matvec and
+    one VJP launching exactly the predicted kernels."""
+    from lanczos_adjoints_tpu_torch.studies import spmv_formats as study
+
+    print("[study-spmv-formats] DIA (plain, K4), BSR (plain, K10) and ELL at the JAX script's cases: grid 1024 and "
+          "256, FEM 24 plain and RCM, random 65,536 x 8; matvec and VJP in x, device time per call", flush=True)
+    with tempfile.TemporaryDirectory() as out:
+        rows, outputs, launches = study.main(["--device", DEVICE, "--out", out])
+        files = sorted(os.listdir(out))
+    failures = [] if files == ["formats.json"] else [f"files {files}"]
+    want_rows = [(c, f) for c, fmts in (("laplacian_2d", ("dia", "dia_kernel")),
+                                         ("laplacian_2d_small", ("dia", "dia_kernel", "ell")),
+                                         ("fem_3dof", ("bsr", "bsr_kernel")), ("fem_3dof_rcm", ("bsr", "bsr_kernel")),
+                                         ("random", ("ell", "ell_gather"))) for f in fmts]
+    if [(r["case"], r["format"]) for r in rows] != want_rows:
+        failures.append(f"rows {[(r['case'], r['format']) for r in rows]}")
+    for r in rows:
+        if not all(r[k] is not None and np.isfinite(r[k]) and r[k] > 0 for k in ("time_s", "time_vjp_s")):
+            failures.append(f"{r['case']}/{r['format']} times")
+    gather = next(r for r in rows if r["format"] == "ell_gather")
+    if gather.get("same_as") != "ell":
+        failures.append("ell_gather not labelled as ell")
+    for (case, fmt), counts in launches.items():
+        want = study.predicted_launches(fmt)
+        ok = counts == want
+        print(f"  {case}/{fmt}: launches {counts} (predicted {want}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"{case}/{fmt} launches")
+    for case, plain, kernel in (("laplacian_2d", "dia", "dia_kernel"), ("laplacian_2d_small", "dia", "dia_kernel"),
+                                ("fem_3dof", "bsr", "bsr_kernel"), ("fem_3dof_rcm", "bsr", "bsr_kernel")):
+        for i, what in enumerate(("matvec", "VJP in x")):
+            _report(f"{case} {kernel} vs {plain} {what}", _rel_err(outputs[(case, kernel)][i],
+                                                                   outputs[(case, plain)][i]),
+                    TOL_FORMATS, failures)
+    for r in rows:
+        print(f"  {r['case']}/{r['format']}: {r['time_s'] * 1e3:.4f} ms/matvec, vjp {r['time_vjp_s'] * 1e3:.4f} ms, "
+              f"{r['nnz_per_s'] / 1e9:.2f} Gnnz/s, fill {r['fill']:.4f}"
+              + (" (the same function as ell)" if r.get("same_as") else "")
+              + (" (unresolved: the host held the device back; upper bounds)" if r.get("unresolved") else ""),
+              flush=True)
+    if failures:
+        raise RuntimeError(f"study-spmv-formats failed: {failures}")
+    totals = {}
+    for (case, fmt), counts in launches.items():
+        if fmt != "ell_gather":
+            for part in counts.values():
+                for k, c in part.items():
+                    totals[k] = totals.get(k, 0) + c
+    return {"rows": rows, "launches": totals}
+
+
+def phase_study_multihost():
+    """``studies.multihost_scaling``: ``--measure_local`` (K1 and K4 local
+    tables, the link stand-ins, the model on the card), then the measured
+    path on 1-16 partitions of one card, its ``dv`` and ``dvals`` held to the
+    unsharded fused route, 2 x depth K11 launches a VJP."""
+    from lanczos_adjoints_tpu_torch.ops import native, sparse
+    from lanczos_adjoints_tpu_torch.studies import multihost_scaling as study
+    from lanczos_adjoints_tpu_torch.utils import test_util
+
+    depth = HALO_DEPTH
+    print(f"[study-multihost] --measure_local (K1 matern32 at 65,536 x d=9 and K4 at n=2^20 / P over "
+          f"{study.MEASURE_GRID}), the model, then the measured path on {study.MESH_SIZES} partitions of one card "
+          f"(K={depth}, reps 4)", flush=True)
+    failures = []
+    with tempfile.TemporaryDirectory() as out:
+        native.reset_launches()
+        artifact, _ = study.main(["--measure_local", "--device", DEVICE, "--out", out])
+        torch.cuda.synchronize()
+        local = _launches(("gram_matvec", "dia_matvec"))
+        per_point = {"gram_matvec": 1 + study.MEASURE_REPEATS * study.REPS, "dia_matvec": 1 + study.REPS}
+        want = {k: c * len(study.MEASURE_GRID) for k, c in per_point.items()}
+        print(f"  local launches {local} (predicted {want}) {'ok' if local == want else 'FAIL'}", flush=True)
+        if local != want:
+            failures.append("local launches")
+        artifact, (rows, grads, launches) = study.main(["--device", DEVICE, "--out", out])
+        files = sorted(os.listdir(out))
+    if files != ["scaling.json"]:
+        failures.append(f"files {files}")
+    model, link = artifact["comm_model"], artifact["local_steps"]["link"]
+    fits = model["assumptions"]["local_cost_fit"]
+    print(f"  link stand-ins ({link['device']}): copy_ {link['copy_bytes_per_s'] / 1e9:.1f} GB/s, launch + "
+          f"synchronise {link['launch_sync_latency_s'] * 1e6:.2f} us", flush=True)
+    for name in ("gram", "dia"):
+        fit = fits[name]
+        print(f"  {name} fit: {fit}", flush=True)
+        if fit.get("unresolved"):
+            failures.append(f"{name} fit unresolved")
+    print(f"  80 % regimes: {model['efficiency_80_regime']}", flush=True)
+    if not (model["gram_flagship"] and model["dia_lanczos"]):
+        failures.append("model rows missing")
+    n = HALO_N  # the script's --num_rows and --bandwidth defaults
+    mat = test_util.five_diagonal(n, HALO_BANDWIDTH)
+    dia = sparse.dia_pack(mat)
+    vals = sparse.dia_values(dia, mat.data, device=DEVICE)
+    v0 = torch.ones(n, device=DEVICE)
+    _unsharded, want_grads, spreads, log_u = _halo_reference(mat, dia, vals, v0, depth)
+    if log_u != ["tridiag:dia_fused"]:
+        failures.append(f"unsharded dispatch {log_u}")
+    want_launches = {"halo_dia_matvec": 2 * depth}
+    for row in rows:
+        p = row["devices"]
+        ok = launches[p] == want_launches
+        print(f"  P={p}: {row['time_s'] * 1e3:.3f} ms a VJP, efficiency {row['efficiency']:.3f}, "
+              f"{row['many_over_one']:.2f}x for 4 VJPs over one; launches {launches[p]} (predicted "
+              f"{want_launches}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"P={p} launches")
+        if not (np.isfinite(row["time_s"]) and row["time_s"] > 0):
+            failures.append(f"P={p} time")
+        for label, i in (("dv", 0), ("dvals", 1)):
+            _report_spread(f"P={p} measured path vs unsharded fused {label}", _rel_err(grads[p][i], want_grads[i]),
+                           _rel_err(spreads[0][i], spreads[1][i]), failures)
+    if failures:
+        raise RuntimeError(f"study-multihost failed: {failures}")
+    totals = {**local}
+    totals["halo_dia_matvec"] = sum(c.get("halo_dia_matvec", 0) for c in launches.values())
+    return {"rows": rows, "launches": totals}
+
+
 def phase_slice_gp_report(results, driver):
     """``train.gp_report``'s table of the ``[slice-driver]`` run's files, its
     rows labelled with the card's name, and the figure where matplotlib is."""
@@ -3966,10 +4239,22 @@ def main() -> int:
     _phase(phase_study_vjp_matvec)
     _phase(phase_study_mll)
     gram_study = _phase(phase_study_gram_matvec)
+    k4_timing_ms = next(e for e in entries if e["name"] == "dia_matvec")["ms"]
+    roofline = _phase(phase_study_dia_roofline, k4_timing_ms)
+    entries.append(roofline)
+    formats = _phase(phase_study_spmv_formats)
+    multihost = _phase(phase_study_multihost)
     main_arnoldi = arnoldi_runs[ARNOLDI_MAIN]["launches"]["fused"]
     # The studies' launches: one call per depth and series of the three
-    # wall-time sweeps (K4-K7, K9), one matvec a size of the Gram study (K1).
+    # wall-time sweeps (K4-K7, K9), one matvec a size of the Gram study (K1),
+    # the roofline's timed calls (K12, K4), one matvec and one VJP a row of
+    # the formats study (K4, K10), the scaling study's local tables (K1, K4)
+    # and one VJP a mesh of its measured path (K11).
     studies = {**wall_times["launches"], "gram_matvec": gram_study["launches"]}
+    for extra in ({"dia_ceiling": roofline["launches"], **roofline["launches_other"]}, formats["launches"],
+                  multihost["launches"]):
+        for name, count in extra.items():
+            studies[name] = studies.get(name, 0) + count
     for entry in entries:
         # The DIA kernels' launches in the Arnoldi adjoint (main path) and SLQ.
         if entry["name"] in ("dia_matvec", "dia_dvals"):

@@ -14,7 +14,13 @@ A wrapper launches its kernel for CUDA tensors and runs the plain
 ``torch.roll`` version of the same arithmetic for CPU tensors; there is
 no other path.
 
-``dia_matvec_fused(dia)`` wraps both in a ``torch.autograd.Function``:
+K12 (``csrc/dia_ceiling.cu`` ``lat_dia_ceiling``, ``dia_ceiling_rows``)
+is K4's speed-of-light probe, the counterpart of the TPU script
+``experiments/benchmarks/spmv_formats/dia_roofline.py``'s
+``speed_of_light``: ``out = x + vals[0] + ... + vals[D-1]``, the traffic
+of one DIA matvec without its shifted reads (``studies.dia_roofline``).
+
+``dia_matvec_fused(dia)`` wraps K4 and K5 in a ``torch.autograd.Function``:
 the forward pass runs K4; the backward pass runs K4 on the transpose
 (offsets ``-d_k``, each diagonal rolled by ``d_k``) only when ``v`` needs
 a gradient, and K5 only when the values do. The Lanczos adjoint's
@@ -32,6 +38,9 @@ DIA_MATVEC = native.Kernel("dia_matvec", "dia", "lat_dia_matvec", device_symbol=
 DIA_MATVEC_T = native.Kernel("dia_matvec_transposed", "dia", "lat_dia_matvec",
                             device_symbol="dia_matvec_kernel")
 DIA_DVALS = native.Kernel("dia_dvals", "dia", "lat_dia_dvals", device_symbol="dia_dvals_kernel")
+DIA_CEILING = native.Kernel("dia_ceiling", "dia_ceiling", "lat_dia_ceiling", device_symbol="dia_ceiling_kernel")
+# K12's block sizes: the counterpart of the TPU script's block ``chunk``.
+CEILING_THREADS = (128, 256, 512, 1024)
 LANES, SUBLANES = 128, 8  # the JAX kernel's tiling, kept for its n % 1024 rule
 
 
@@ -69,6 +78,14 @@ def dia_matvec_plain(offsets, x, vals):
 def dia_dvals_plain(offsets, x, u):
     """Plain K5: ``stack_k(u * roll(x, -d_k))``, any dtype."""
     return torch.stack([u * torch.roll(x, -d) for d in offsets])
+
+
+def dia_ceiling_plain(x, vals):
+    """Plain K12: ``x + vals[0] + ... + vals[D-1]``, summed in that order, any dtype."""
+    out = x
+    for k in range(vals.shape[0]):
+        out = out + vals[k]
+    return out
 
 
 def transposed(offsets, vals):
@@ -116,6 +133,25 @@ def dia_dvals_rows(offsets, x, u):
             native.offsets_arg(offsets, n, device).data_ptr(), native.stream(device),
         )
     return dvals
+
+
+def dia_ceiling_rows(x, vals, *, threads=256):
+    """K12: ``x (n,)``, ``vals (D, n)`` -> ``x + sum_k vals[k]`` ``(n,)``, bit for
+    bit ``dia_ceiling_plain``; ``threads`` a block, one of ``CEILING_THREADS``."""
+    device = check_operands(x, vals)
+    if x.ndim != 1 or vals.ndim != 2 or vals.shape[1] != x.shape[0] or vals.shape[0] < 1:
+        msg = f"shape mismatch: x {tuple(x.shape)}, vals {tuple(vals.shape)}"
+        raise ValueError(msg)
+    if threads not in CEILING_THREADS:
+        msg = f"threads={threads} not in {CEILING_THREADS}"
+        raise ValueError(msg)
+    if device.type == "cpu":
+        return dia_ceiling_plain(x, vals)
+    out = torch.empty_like(x)
+    with torch.cuda.device(device):
+        DIA_CEILING.launch(x.data_ptr(), vals.data_ptr(), out.data_ptr(), x.shape[0], vals.shape[0],
+                           threads, native.stream(device))
+    return out
 
 
 class _DiaMatvec(torch.autograd.Function):

@@ -29,7 +29,7 @@ CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
 SOURCES = (
     "gram_matvec", "gram_grads", "gram_dgrads", "dia", "lanczos_dia", "arnoldi_dia", "bsr",
-    "halo_dia", "device",
+    "halo_dia", "dia_ceiling", "device",
 )
 FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -74,6 +74,7 @@ _SIGNATURES = {
     "halo_dia": {
         "lat_halo_dia_matvec": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P),
     },
+    "dia_ceiling": {"lat_dia_ceiling": (_P, _P, _P, _I, _I, _I, _P)},
 }
 
 _loaded = {}

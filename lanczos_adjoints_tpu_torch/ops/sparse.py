@@ -172,8 +172,7 @@ def dia_pack(mat: CSRMatrix) -> DIAData:
     rows = mat.rows
     entry_offsets = mat.indices - rows
     offsets = np.unique(entry_offsets)
-    lookup = {int(d): i for i, d in enumerate(offsets)}
-    diag_of_entry = np.asarray([lookup[int(d)] for d in entry_offsets])
+    diag_of_entry = np.searchsorted(offsets, entry_offsets)  # each entry's index in the sorted offsets
     return DIAData(
         offsets=tuple(int(d) for d in offsets),
         shape=mat.shape,

@@ -42,7 +42,7 @@ from lanczos_adjoints_tpu_torch.utils.timing import median_seconds
 TIMED_RUNS = 5
 
 
-def problem(num_data, data_dim, *, seed=0, device="cpu"):
+def problem(num_data, data_dim, *, seed=0, device="cuda"):
     """``(x, y)``: standard-normal points from numpy and ``sin(x[:, 0])``."""
     rng = np.random.default_rng(seed)
     x = torch.tensor(rng.standard_normal((num_data, data_dim)), dtype=torch.float32, device=device)

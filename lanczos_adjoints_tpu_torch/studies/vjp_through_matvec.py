@@ -77,7 +77,7 @@ def gram_matvec_custom_vjp(kernel_factory):
     return mv
 
 
-def problem(num_data, data_dim, *, seed=0, device="cpu"):
+def problem(num_data, data_dim, *, seed=0, device="cuda"):
     """``(x, v, params)``: standard-normal points and vector from numpy, zero raw parameters."""
     rng = np.random.default_rng(seed)
     x = torch.tensor(rng.standard_normal((num_data, data_dim)), dtype=torch.float32, device=device)

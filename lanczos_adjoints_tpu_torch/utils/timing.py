@@ -67,6 +67,46 @@ def device_profile(fn):
     return wall_ms, kernels
 
 
+# A spin of this many seconds (at the H100's 1.98 GHz top clock; longer on
+# a slower clock) holds the stream while the host enqueues a timed run.
+HOLD_S = 0.1
+_HOLD_CYCLES_PER_S = 1.98e9
+
+
+def device_seconds(fn, *, reps: int, device) -> tuple:
+    """``(seconds per call, clock)`` of ``reps`` back-to-back calls of ``fn()``.
+
+    On a card the device's time: CUDA events around the ``reps`` calls,
+    queued behind a spin kernel (``torch.cuda._sleep``) that holds the
+    stream for ``HOLD_S`` while the host enqueues them, so the host's
+    launch time is hidden and the device's own gaps between kernels count
+    (clock ``"events"``). Where the host took longer to enqueue than the
+    hold, the reading includes its gaps and is an upper bound (clock
+    ``"events, host-bound"``). Not the profiler: it misses launches in
+    some windows, and a sum over what it saw then undercounts. ``fn``
+    runs exactly ``reps`` times. Elsewhere a host clock (``"host"``).
+    Warm ``fn`` up first.
+    """
+    if torch.device(device).type != "cuda":
+        start = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - start) / reps, "host"
+    held, begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    torch.cuda.synchronize()
+    held.record()
+    torch.cuda._sleep(int(HOLD_S * _HOLD_CYCLES_PER_S))
+    begin.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    hold_s = held.elapsed_time(begin) / 1e3
+    return begin.elapsed_time(end) / reps / 1e3, "events" if enqueue_s < hold_s else "events, host-bound"
+
+
 def launch_report(kernels, launched, symbols):
     """The profiler's launch counts beside the registry's, by device symbol.
 

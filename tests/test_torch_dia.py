@@ -165,7 +165,7 @@ def test_one_registry_holds_every_kernel_and_counts_only_launches():
     from lanczos_adjoints_tpu_torch.parallel import fused_halo
 
     assert sorted(native.KERNELS) == [
-        "arnoldi_dia_forward", "bsr_spmv", "dia_dvals", "dia_matvec", "dia_matvec_transposed",
+        "arnoldi_dia_forward", "bsr_spmv", "dia_ceiling", "dia_dvals", "dia_matvec", "dia_matvec_transposed",
         "gram_dgrads", "gram_grads", "gram_matvec", "halo_dia_matvec", "halo_dia_matvec_transposed",
         "lanczos_dia_adjoint", "lanczos_dia_forward",
     ]

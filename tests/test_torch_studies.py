@@ -319,7 +319,7 @@ def test_wall_times_files_dispatch_and_launches(which, reortho, monkeypatch, tmp
 def test_vjp_through_matvec_gradients_match_jax():
     script = _load_script(BENCHMARKS / "vjp_through_matvec/benchmark.py", "jax_vjp_through_matvec")
     n, d = 512, 2
-    x, v, params = vjp_through_matvec.problem(n, d, seed=0)
+    x, v, params = vjp_through_matvec.problem(n, d, seed=0, device="cpu")
     kernel_factory, _ = jgp.kernel_scaled_rbf(shape_in=(d,), shape_out=())
     xj, vj = jnp.asarray(x.numpy()), jnp.asarray(v.numpy())
     pj = {"raw_lengthscale": jnp.zeros((d,)), "raw_outputscale": jnp.zeros(())}
@@ -338,7 +338,7 @@ def test_vjp_through_matvec_gradients_match_jax():
 
 
 def test_recomputed_matvec_gives_x_and_v_their_gradients():
-    x, v, params = vjp_through_matvec.problem(64, 3, seed=1)
+    x, v, params = vjp_through_matvec.problem(64, 3, seed=1, device="cpu")
     kernel_factory, _ = vjp_through_matvec.gp.kernel_scaled_rbf(shape_in=(3,), shape_out=())
     mv = vjp_through_matvec.gram_matvec_custom_vjp(kernel_factory)
     x64, v64 = x.double().requires_grad_(), v.double().requires_grad_()
@@ -359,7 +359,7 @@ def _jax_mll():
     """JAX's value and gradient of the negative log-marginal likelihood under
     ``gram_matvec()``, with the port's numpy probes."""
     n, d, matvecs, samples = MLL_CASE.values()
-    x, y = value_and_grad_of_mll.problem(n, d, seed=0)
+    x, y = value_and_grad_of_mll.problem(n, d, seed=0, device="cpu")
     signs = value_and_grad_of_mll.probes(n, samples, 1, seed=0)[0]
     keys = jax.random.split(jax.random.PRNGKey(0), samples)
 
@@ -386,7 +386,7 @@ def _jax_mll():
 @pytest.mark.parametrize("policy", ["vmap", "partitioned(16)"])
 def test_mll_value_and_gradient_match_jax(policy):
     n, d, matvecs, samples = MLL_CASE.values()
-    x, y = value_and_grad_of_mll.problem(n, d, seed=0)
+    x, y = value_and_grad_of_mll.problem(n, d, seed=0, device="cpu")
     signs = value_and_grad_of_mll.probes(n, samples, 1, seed=0)[0]
     value_j, grad_j = _jax_mll()
     gram = value_and_grad_of_mll.policies(16)[policy]
