@@ -31,16 +31,26 @@ Phases, in order:
      then the driver: ``train.gp.run`` at the ``adj400k`` arguments with
      no epoch, from that run's final parameters (its ``params_opt``), on
      its split and ``mll_eval`` probes: the pivoted Cholesky at 400,000,
-     ``predict_mean`` (PCG at 400,000, then K1 at the test-by-train cross
-     shape 100,000 x 400,000) and ``mll_eval`` on the 100,000 test
-     points, test RMSE and NLL within 1e-3 of that run's, both PCG
-     residuals printed, its eleven series written, K1 launches and wall
-     time by shape; then ``--matvec auto`` on the card: one step at
+     ``predict_mean_split`` (``--split_step``: PCG at 400,000 restarted
+     from the true residual in chunks of ``--cg_maxiter`` 25 steps, then K1
+     at the test-by-train cross shape 100,000 x 400,000) and ``mll_eval``
+     on the 100,000 test points, test RMSE and NLL within 1e-3 of that
+     run's (the one-PCG evaluation's gaps printed beside), the restarts, chunk steps
+     and true residuals, its eleven series written, K1 launches and wall
+     time by shape (at 400,000^2 as the restarts predict); then
+     ``--matvec auto`` on the card: one step at
      N_train = 16,000 under the dense and the 8-partition plain policies
      against ``fused`` at the same probes (10x the plain policy's
      float32-vs-float64 spread), and one partitioned matvec at 400,000 x
      400,000 (50 partitions, m = 1 and 15) by CUDA events beside K1,
-     with its peak memory;
+     with its peak memory; then ``[slice-fixed]``: ``train.gp.run`` in
+     ``solver_mode="fixed"`` (``optim_logml_adjoints_fixed.py``), one epoch
+     at the adj400k arguments and width on the JAX draws (exactly 15 PCG
+     steps, a finite loss, K1/K2 launches as predicted), its evaluation
+     through ``predict_mean_split`` (finite RMSE and NLL), and the
+     fixed-mode step of ``auto`` against ``fused`` at 16,000 under
+     ``[slice-auto]``'s gates, the spread the largest of the plain
+     policies';
   6. DIA parity: K4 (``csrc/dia.cu``), K4 on the transpose (through the
      autograd backward) and K5 against their plain versions, offsets
      (-1, 0, 1), (-130, -7, 0, 7, 130), 65 and 100 diagonals with random
@@ -61,8 +71,9 @@ Phases, in order:
      launches per VJP, the dispatch log, fused vs generic, and VJP wall
      times;
   9. kernel times at the slices' shapes beside their bounds, their
-     plain versions' times and (K4) one library call, each held to its
-     plain version again, and K7's traffic (each array once, the parent
+     plain versions' times and (K4) one library call, (K5) the gather and
+     multiply ``u * x[idx]`` beside K5 behind a held stream, each held to
+     its plain version again, and K7's traffic (each array once, the parent
      kernel's schedule, this one's). K4 and K5 cycle through operand sets
      larger than the L2 together, as the main path does;
  10. Arnoldi parity: K9 (``csrc/arnoldi_dia.cu``) against its plain
@@ -207,8 +218,12 @@ Phases, in order:
      ``[study-multihost]`` (the K1 and K4 local tables, the link stand-ins
      and the model on the card, then the measured path on 1-16 partitions
      of one card, its dv and dvals within 10x the plain spread of the
-     unsharded fused route, 60 K11 launches a VJP). Every phase prints its
-     wall time (``[phase-time]``). The kernels of every slice, with their
+     unsharded fused route, 60 K11 launches a VJP);
+ 33. ``[study-mtx-parser]``: ``studies.mtx_parser`` at the JAX script's
+     defaults (1,000,000 rows, 8 entries each), the file read by scipy,
+     the port's C++ parser (``native/mtxparse.cc``, built by the host
+     compiler) and numpy into one CSR, each path's MB/s on the host. Every
+     phase prints its wall time (``[phase-time]``). The kernels of every slice, with their
      numbers, form one JSON line.
 Every profiled run prints the profiler's launch count of each of the
 port's kernels beside the registry's, and flags a kernel whose launches
@@ -670,6 +685,65 @@ def phase_slice(n_train, epochs=2):
     return {"launches": totals, "per_step": per_step, "step_s": times, "gaps": gaps}
 
 
+def _auto_against_fused(n, partitions, solver_mode, pooled_spread=False):
+    """One ``train_step`` at N_train = ``n`` in ``solver_mode`` under the plain
+    ``auto`` policies (dense, partitioned) against ``fused`` (K1/K2) at the
+    same probes: the loss and gradient within 10x the plain policy's
+    float32-vs-float64 spread (never below ``SPREAD_FLOOR``), the CG steps
+    equal. With ``pooled_spread`` the spread is the largest of the plain
+    policies' at these inputs: one scalar's spread is one draw of the
+    float32 rounding and may land near zero by chance (on an H100 the
+    fixed-mode loss's spread was 1.27e-7 at 8 partitions, 1.32e-6 dense,
+    and the kernels' loss 1.3e-6 from float64). Returns one row a partition count,
+    ``"ok"`` among its keys."""
+    from lanczos_adjoints_tpu_torch.train import gp as train_gp
+
+    X32, y32 = _data(n, seed=3)
+    probes32 = torch.tensor(np.random.default_rng(3).choice([-1.0, 1.0], size=(15, n)), device=DEVICE,
+                            dtype=torch.float32)
+    params32 = torch.tensor(train_gp.ADJ400K_INIT, dtype=torch.float32, device=DEVICE)
+
+    def step(policy, dtype):
+        to = lambda t: t.to(dtype)  # noqa: E731
+        stack = train_gp.assemble(n_train=n, ndim=8, device=DEVICE, matvec=policy, solver_mode=solver_mode,
+                                  sample=lambda _key: to(probes32))
+        opt = train_gp.AdamIfFinite(to(params32).clone().requires_grad_(), lr=0.05)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value, info, grad, _applied = train_gp.train_step(stack, opt, None, to(X32), to(y32))
+        torch.cuda.synchronize()
+        # Fixed-step PCG reports no step count; it takes assemble's 15 (num_matvecs).
+        steps = int(info["logpdf"]["solve"].get("num_steps", 15))
+        return value.item(), grad.double().cpu(), steps, time.perf_counter() - t0
+
+    fused = step(train_gp.gram_policy("fused", 1), torch.float32)
+    runs, spreads = {}, {}
+    for parts in partitions:
+        policy = train_gp.gram_policy("auto", parts)
+        auto32, auto64 = runs[parts] = step(policy, torch.float32), step(policy, torch.float64)
+        spreads[parts] = (abs(auto32[0] - auto64[0]) / abs(auto64[0]),
+                          float((auto32[1] - auto64[1]).abs().max() / auto64[1].abs().max()))
+    report = {}
+    for parts in partitions:
+        auto32, auto64 = runs[parts]
+        spread_loss, spread_grad = (max(s[i] for s in spreads.values()) if pooled_spread else spreads[parts][i]
+                                    for i in (0, 1))
+        err_loss = abs(auto32[0] - fused[0]) / abs(fused[0])
+        err_grad = float((auto32[1] - fused[1]).abs().max() / fused[1].abs().max())
+        tol_loss = max(SPREAD_FACTOR * spread_loss, SPREAD_FLOOR)
+        tol_grad = max(SPREAD_FACTOR * spread_grad, SPREAD_FLOOR)
+        ok = err_loss <= tol_loss and err_grad <= tol_grad and auto32[2] == fused[2]
+        print(f"  {solver_mode}, auto, {parts} partition(s): loss {auto32[0]:.8f} vs fused {fused[0]:.8f} (rel "
+              f"{err_loss:.2e}, tol {tol_loss:.2e} = 10x the f32-vs-f64 spread {spread_loss:.2e}"
+              f"{' (the largest of the plain policies)' if pooled_spread else ''}); gradient max rel "
+              f"{err_grad:.2e} (tol {tol_grad:.2e}, spread {spread_grad:.2e}); CG steps {auto32[2]} vs {fused[2]}; "
+              f"wall auto f32 {auto32[3]:.2f} s, f64 {auto64[3]:.2f} s, fused {fused[3]:.2f} s "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        report[parts] = {"loss_rel": err_loss, "grad_rel": err_grad, "spread_loss": spread_loss,
+                         "spread_grad": spread_grad, "seconds": auto32[3], "ok": ok}
+    return report
+
+
 def phase_slice_auto(n=16_000, partitions=(1, 8), big=N_TRAIN, big_partitions=50):
     """``--matvec auto`` on the card: one ``train_step`` at N_train = ``n`` under
     the dense and the partitioned plain policies against ``fused`` (K1/K2) at
@@ -686,43 +760,8 @@ def phase_slice_auto(n=16_000, partitions=(1, 8), big=N_TRAIN, big_partitions=50
     print(f"[slice-auto] train.gp.gram_policy('auto', P) on the card: one train_step at N_train={n}, d=8, matern32 "
           f"ARD, 15 Lanczos x 15 probes, rank 448, against 'fused' at the same probes; then one partitioned matvec "
           f"at {big} x {big}, {big_partitions} partitions", flush=True)
-    X32, y32 = _data(n, seed=3)
-    probes32 = torch.tensor(np.random.default_rng(3).choice([-1.0, 1.0], size=(15, n)), device=DEVICE,
-                            dtype=torch.float32)
-    params32 = torch.tensor(train_gp.ADJ400K_INIT, dtype=torch.float32, device=DEVICE)
-
-    def step(policy, dtype):
-        to = lambda t: t.to(dtype)  # noqa: E731
-        stack = train_gp.assemble(n_train=n, ndim=8, device=DEVICE, matvec=policy,
-                                  sample=lambda _key: to(probes32))
-        opt = train_gp.AdamIfFinite(to(params32).clone().requires_grad_(), lr=0.05)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        value, info, grad, _applied = train_gp.train_step(stack, opt, None, to(X32), to(y32))
-        torch.cuda.synchronize()
-        return value.item(), grad.double().cpu(), int(info["logpdf"]["solve"]["num_steps"]), time.perf_counter() - t0
-
-    fused = step(train_gp.gram_policy("fused", 1), torch.float32)
-    failures, report = [], {}
-    for parts in partitions:
-        policy = train_gp.gram_policy("auto", parts)
-        auto32, auto64 = step(policy, torch.float32), step(policy, torch.float64)
-        spread_loss = abs(auto32[0] - auto64[0]) / abs(auto64[0])
-        spread_grad = float((auto32[1] - auto64[1]).abs().max() / auto64[1].abs().max())
-        err_loss = abs(auto32[0] - fused[0]) / abs(fused[0])
-        err_grad = float((auto32[1] - fused[1]).abs().max() / fused[1].abs().max())
-        tol_loss = max(SPREAD_FACTOR * spread_loss, SPREAD_FLOOR)
-        tol_grad = max(SPREAD_FACTOR * spread_grad, SPREAD_FLOOR)
-        ok = err_loss <= tol_loss and err_grad <= tol_grad and auto32[2] == fused[2]
-        print(f"  auto, {parts} partition(s): loss {auto32[0]:.8f} vs fused {fused[0]:.8f} (rel {err_loss:.2e}, tol "
-              f"{tol_loss:.2e} = 10x the f32-vs-f64 spread {spread_loss:.2e}); gradient max rel {err_grad:.2e} (tol "
-              f"{tol_grad:.2e}, spread {spread_grad:.2e}); CG steps {auto32[2]} vs {fused[2]}; wall auto f32 "
-              f"{auto32[3]:.2f} s, f64 {auto64[3]:.2f} s, fused {fused[3]:.2f} s {'ok' if ok else 'FAIL'}", flush=True)
-        report[parts] = {"loss_rel": err_loss, "grad_rel": err_grad, "spread_loss": spread_loss,
-                         "spread_grad": spread_grad, "seconds": auto32[3]}
-        if not ok:
-            failures.append(f"auto at {parts} partitions")
-    del X32, y32, probes32
+    failures, report = [], _auto_against_fused(n, partitions, "adaptive")
+    failures += [f"auto at {parts} partitions" for parts, row in report.items() if not row["ok"]]
 
     g = torch.Generator(device=DEVICE).manual_seed(4)
     Xb = torch.randn((big, 8), generator=g, device=DEVICE)
@@ -757,27 +796,16 @@ def phase_slice_auto(n=16_000, partitions=(1, 8), big=N_TRAIN, big_partitions=50
     return report
 
 
-def phase_slice_driver(results_dir):
-    """The driver's evaluation at the adj400k configuration, at the JAX run's
-    final parameters, on its split and with its ``mll_eval`` probes
-    (``train.gp.JaxDraws``): ``train.gp.run`` with no epoch, through the
-    pivoted Cholesky, ``predict_mean`` (PCG at 400,000, then the 100,000 x
-    400,000 cross product) and ``mll_eval`` on the test set; test RMSE and
-    NLL within ``TOL_JAX_RUN`` of the JAX run's, the eleven series written.
-    K1 launches are tallied by shape (rows, columns, m) with their wall
-    time, each launch synchronised before and after. The series go to
-    ``results_dir``, which ``[slice-gp-report]`` reads."""
-    from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
-    from lanczos_adjoints_tpu_torch.ops import native
-    from lanczos_adjoints_tpu_torch.train import gp as train_gp
+# The gaps of the one-PCG evaluation (``predict_mean``) to the JAX adj400k run
+# on an H100 (test RMSE, NLL), printed beside the restarted evaluation's.
+ONE_PCG_GAPS = {"rmse": 4.0e-4, "nll": 1.2e-5}
 
-    params0 = train_gp.adj400k_jax_result("params_opt")
-    want = {"rmse": float(train_gp.adj400k_jax_result("test_rmses")),
-            "nll": float(train_gp.adj400k_jax_result("test_nlls"))}
-    print(f"[slice-driver] train.gp.run at the adj400k arguments, no epoch, from the JAX run's params_opt, on its "
-          f"split and mll_eval probes: predict_mean and mll_eval on the test set, held to the JAX run's RMSE "
-          f"{want['rmse']:.6f} and NLL {want['nll']:.6f} within {TOL_JAX_RUN:.0e}", flush=True)
-    by_shape = {}
+
+def _tallied_k1(by_shape):
+    """``fused_gram.gram_matvec_rows`` that tallies its launches into ``by_shape``:
+    (rows, columns, m) -> (count, synchronised seconds)."""
+    from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
+
     launch = fg.gram_matvec_rows
 
     def tallied(kind, xs, ys, v2):
@@ -790,6 +818,49 @@ def phase_slice_driver(results_dir):
         by_shape[key] = (count + 1, seconds + time.perf_counter() - t0)
         return out
 
+    return launch, tallied
+
+
+def _split_eval_line(info) -> str:
+    """``predict_mean_split``'s restarts, chunk steps and true residuals, as one line."""
+    residuals, chunks = info["residual_rms"], info["chunk_steps"]
+    return (f"predict_mean_split: {len(residuals)} true residuals, {len(chunks)} PCG chunks of {chunks} steps "
+            f"({sum(chunks)} in all), true-residual RMS {[float(f'{r:.3e}') for r in residuals]} "
+            f"(final {residuals[-1]:.3e}, atol 1e-2)")
+
+
+def _split_eval_k1(info) -> int:
+    """K1 launches at N_train x N_train of ``predict_mean_split``: one a true
+    residual, and a chunk of k steps k + 1 (PCG's start from x = 0 applies the
+    operator once)."""
+    return len(info["residual_rms"]) + sum(info["chunk_steps"]) + len(info["chunk_steps"])
+
+
+def phase_slice_driver(results_dir):
+    """The driver's evaluation at the adj400k configuration, at the JAX run's
+    final parameters, on its split and with its ``mll_eval`` probes
+    (``train.gp.JaxDraws``): ``train.gp.run`` with no epoch, through the
+    pivoted Cholesky, ``predict_mean_split`` (``--split_step``: PCG at
+    400,000 restarted from the true residual in chunks of ``--cg_maxiter``
+    25 steps, then the 100,000 x 400,000 cross product) and ``mll_eval`` on
+    the test set; test RMSE and NLL within ``TOL_JAX_RUN`` of the JAX
+    run's, the eleven series written. K1 launches are tallied by shape
+    (rows, columns, m) with their wall time, each launch synchronised
+    before and after. The series go to ``results_dir``, which
+    ``[slice-gp-report]`` reads."""
+    from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.train import gp as train_gp
+
+    params0 = train_gp.adj400k_jax_result("params_opt")
+    want = {"rmse": float(train_gp.adj400k_jax_result("test_rmses")),
+            "nll": float(train_gp.adj400k_jax_result("test_nlls"))}
+    print(f"[slice-driver] train.gp.run at the adj400k arguments, no epoch, from the JAX run's params_opt, on its "
+          f"split and mll_eval probes: predict_mean_split (restarted PCG, chunks of --cg_maxiter 25) and mll_eval "
+          f"on the test set, held to the JAX run's RMSE {want['rmse']:.6f} and NLL {want['nll']:.6f} within "
+          f"{TOL_JAX_RUN:.0e}", flush=True)
+    by_shape = {}
+    launch, tallied = _tallied_k1(by_shape)
     args = _adj400k_args("--num_epochs", "0", "--out", results_dir)
     fg.gram_matvec_rows = tallied
     native.reset_launches()
@@ -807,17 +878,16 @@ def phase_slice_driver(results_dir):
     saved = np.load(f"{result.path}_params_opt.npy")
     names = sorted(f"adj400k_synthetic_gp500k_s1_{name}.npy" for name in train_gp.RESULTS)
     gaps = {"rmse": result.test_rmse / want["rmse"] - 1.0, "nll": result.test_nll / want["nll"] - 1.0}
-    steps = {"predict_mean": float(result.predict_info["solve"]["num_steps"]),
+    split = result.predict_info
+    steps = {"predict_mean_split": sum(split.get("chunk_steps", [])),
              "mll_eval": float(result.eval_info["logpdf"]["solve"]["num_steps"])}
-    residuals = {name: float(torch.sqrt(torch.mean(info["residual_abs"] ** 2))) for name, info in (
-        ("predict_mean", result.predict_info["solve"]), ("mll_eval", result.eval_info["logpdf"]["solve"]))}
-    print(f"  test RMSE {result.test_rmse:.6f} (JAX run {want['rmse']:.6f}, gap {gaps['rmse']:+.3e}), "
-          f"test NLL {result.test_nll:.6f} (JAX run {want['nll']:.6f}, gap {gaps['nll']:+.3e}); PCG residual RMS: "
-          f"predict_mean {residuals['predict_mean']:.3e} (atol 1e-2; the JAX run's restarted PCG stops at the "
-          f"same atol), mll_eval {residuals['mll_eval']:.3e} (atol 1e-4)", flush=True)
-    print(f"  PCG steps: predict_mean {steps['predict_mean']:.0f} (atol 1e-2), mll_eval {steps['mll_eval']:.0f} "
-          f"(atol 1e-4); wall: run {seconds:.2f} s, predict_mean {result.seconds['predict_mean']:.2f} s, "
-          f"mll_eval {result.seconds['mll_eval']:.2f} s", flush=True)
+    eval_residual = float(torch.sqrt(torch.mean(result.eval_info["logpdf"]["solve"]["residual_abs"] ** 2)))
+    print(f"  test RMSE {result.test_rmse:.6f} (JAX run {want['rmse']:.6f}, gap {gaps['rmse']:+.3e}; the "
+          f"one-PCG evaluation's {ONE_PCG_GAPS['rmse']:.1e}), test NLL {result.test_nll:.6f} (JAX run {want['nll']:.6f}, gap "
+          f"{gaps['nll']:+.3e}; one PCG {ONE_PCG_GAPS['nll']:.1e})", flush=True)
+    print(f"  {_split_eval_line(split)}; mll_eval PCG {steps['mll_eval']:.0f} steps, residual RMS "
+          f"{eval_residual:.3e} (atol 1e-4); wall: run {seconds:.2f} s, predict_mean_split "
+          f"{result.seconds['predict_mean']:.2f} s, mll_eval {result.seconds['mll_eval']:.2f} s", flush=True)
     for (rows, cols, m), (count, secs) in sorted(by_shape.items()):
         print(f"  K1 {rows} x {cols} m={m}: {count} launches, {secs:.3f} s (synchronised)", flush=True)
     print(f"  launches: K1 {counts['gram_matvec']}, K2 {counts['gram_grads']}; {len(files)} files written, "
@@ -827,14 +897,96 @@ def phase_slice_driver(results_dir):
         failures.append(f"files {files}")
     if not np.array_equal(saved, params0):
         failures.append("params_opt differs from params0")
+    if "chunk_steps" not in split:
+        failures.append("the evaluation did not go through predict_mean_split")
+    elif by_shape.get((N_TRAIN, N_TRAIN, 1), (0,))[0] != _split_eval_k1(split):
+        failures.append(f"K1 at {N_TRAIN}^2: {by_shape.get((N_TRAIN, N_TRAIN, 1))}, predicted {_split_eval_k1(split)}")
     if counts["gram_matvec"] == 0 or by_shape.get((N_TEST, N_TRAIN, 1), (0,))[0] != 1:
         failures.append(f"K1 launches {counts}, by shape {by_shape}")
     if failures:
         raise RuntimeError(f"slice-driver failed: {failures}")
     return {"launches": counts["gram_matvec"], "by_shape": {f"{r}x{c} m={m}": n for (r, c, m), (n, _s) in
                                                             by_shape.items()},
-            "pcg_steps": steps, "seconds": {"run": seconds, **result.seconds},
-            "test_rmse": result.test_rmse, "test_nll": result.test_nll}
+            "pcg_steps": steps, "chunk_steps": split["chunk_steps"], "residual_rms": split["residual_rms"],
+            "seconds": {"run": seconds, **result.seconds},
+            "test_rmse": result.test_rmse, "test_nll": result.test_nll, "gaps": gaps}
+
+
+# [slice-fixed]'s K1/K2 launches in one fixed-mode epoch on the JAX draws
+# (15 PCG steps, 5 host batches of 3 probes): the PCG solve and its
+# transposed solve 16 each (15 steps and the start from x = 0; the solve's
+# parameter gradient needs no forward value, only K2), m = 1; 15 Lanczos
+# steps forward and 15 in the adjoint a batch (m = 3); K2 once for the
+# solve (m = 1) and once a batch (m = 45).
+FIXED_EPOCH_LAUNCHES = {(N_TRAIN, N_TRAIN, 1): 32, (N_TRAIN, N_TRAIN, 3): 150, "gram_grads": 6}
+
+
+def phase_slice_fixed(n_auto=16_000, partitions=(1, 8)):
+    """``optim_logml_adjoints_fixed.py`` on the card: ``train.gp.run`` at the
+    adj400k arguments with one epoch in ``solver_mode="fixed"`` (15 PCG
+    steps) at full width, from the JAX run's initial parameters on its split
+    and probes, then its evaluation through ``predict_mean_split``: the loss
+    finite, ``cg_numsteps_all`` [15], the epoch's K1/K2 launches as
+    predicted (``FIXED_EPOCH_LAUNCHES``), the evaluation's K1 at N_train^2
+    as its restarts and chunks predict, RMSE and NLL finite. Then at
+    N_train = ``n_auto`` the fixed-mode step of ``--matvec auto`` against
+    ``fused`` under ``[slice-auto]``'s gates, the spread pooled over the
+    plain policies."""
+    from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.train import gp as train_gp
+
+    print(f"[slice-fixed] train.gp.run(solver_mode='fixed') at the adj400k arguments, 1 epoch at N_train={N_TRAIN}, "
+          f"d=8, 15 fixed PCG steps, 15 Lanczos x 15 probes in 5 host batches, from the JAX run's initial parameters "
+          f"on its split and probes; then predict_mean_split and mll_eval on the test set; then fixed mode "
+          f"auto vs fused at N_train={n_auto}", flush=True)
+    by_shape = {}
+    launch, tallied = _tallied_k1(by_shape)
+    failures = []
+    with tempfile.TemporaryDirectory() as out:
+        args = _adj400k_args("--num_epochs", "1", "--out", out)
+        fg.gram_matvec_rows = tallied
+        native.reset_launches()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = train_gp.run(args, solver_mode="fixed", params0=train_gp.ADJ400K_INIT,
+                                  draws=train_gp.JaxDraws(device=DEVICE))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            fg.gram_matvec_rows = launch
+    counts = _launches(("gram_matvec", "gram_grads"))
+    series, split = result.series, result.predict_info
+    loss, steps = series["loss_curve"], series["cg_numsteps_all"]
+    epoch_s = series["loss_timestamps"][0]
+    print(f"  epoch 0: loss {loss[0]:.8f} cg_steps {steps} cg_error {series['cg_errors'][0]:.3e} slq_std_rel "
+          f"{series['slq_std_rels'][0]:.6e} skipped {series['notfinite_curve'][0]}; epoch {epoch_s:.2f} s", flush=True)
+    print(f"  test RMSE {result.test_rmse:.6f}, NLL {result.test_nll:.6f}; {_split_eval_line(split)}; wall: run "
+          f"{seconds:.2f} s, predict_mean_split {result.seconds['predict_mean']:.2f} s, mll_eval "
+          f"{result.seconds['mll_eval']:.2f} s", flush=True)
+    for (rows, cols, m), (count, secs) in sorted(by_shape.items()):
+        print(f"  K1 {rows} x {cols} m={m}: {count} launches, {secs:.3f} s (synchronised)", flush=True)
+    want = {**FIXED_EPOCH_LAUNCHES}
+    want[(N_TRAIN, N_TRAIN, 1)] += _split_eval_k1(split)
+    got = {key: by_shape.get(key, (0,))[0] for key in want if key != "gram_grads"}
+    got["gram_grads"] = counts["gram_grads"]
+    print(f"  launches: K1 {counts['gram_matvec']}, K2 {counts['gram_grads']}; at N_train^2 and K2 {got} "
+          f"(predicted {want}: the epoch's {FIXED_EPOCH_LAUNCHES} and the evaluation's {_split_eval_k1(split)})",
+          flush=True)
+    if not np.isfinite(loss).all() or steps != [15]:
+        failures.append(f"loss {loss}, cg_numsteps_all {steps}")
+    if got != want or by_shape.get((N_TEST, N_TRAIN, 1), (0,))[0] != 1:
+        failures.append(f"launches {got} (predicted {want}), by shape {by_shape}")
+    if not (np.isfinite(result.test_rmse) and np.isfinite(result.test_nll)):
+        failures.append(f"RMSE {result.test_rmse}, NLL {result.test_nll}")
+    report = _auto_against_fused(n_auto, partitions, "fixed", pooled_spread=True)
+    failures += [f"fixed, auto at {parts} partitions" for parts, row in report.items() if not row["ok"]]
+    if failures:
+        raise RuntimeError(f"slice-fixed failed: {failures}")
+    return {"loss": loss[0], "epoch_s": epoch_s, "seconds": {"run": seconds, **result.seconds},
+            "chunk_steps": split["chunk_steps"], "residual_rms": split["residual_rms"],
+            "test_rmse": result.test_rmse, "test_nll": result.test_nll, "auto": report}
 
 
 def phase_parity_dgrads(rows=(3001, 2777), kinds=("rbf", "matern12", "matern32"),
@@ -1657,6 +1809,35 @@ def _k7_traffic(n, num_diags, depth, plan):
             "bytes_schedule": 4 * depth * (step + num_diags * n) + rest - 4 * num_diags * n}
 
 
+def _k5_library(row, offsets, sets, failures, reps=32):
+    """K5's library time: ``u * x[idx]``, one gather of x by a precomputed
+    (D, n) index ``(i + d_k) mod n`` and one multiply (two PyTorch calls; no
+    single call computes dvals), beside K5, each over ``sets`` (L2-cold) by
+    ``utils.timing.device_seconds`` (events behind a held stream). The
+    library result must equal K5's bit for bit (one float32 product a slot
+    on both sides). Sets the row's ``library_ms``."""
+    from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
+    from lanczos_adjoints_tpu_torch.utils.timing import device_seconds
+
+    n = sets[0][0].shape[0]
+    idx = (torch.arange(n, device=DEVICE)[None, :]
+           + torch.tensor(offsets, device=DEVICE)[:, None]).remainder(n)
+    kernel = _rotating([lambda s=s: fd.dia_dvals_rows(offsets, s[0], s[2]) for s in sets])
+    library = _rotating([lambda s=s: s[2] * s[0][idx] for s in sets])
+    x, u = sets[0][0], sets[0][2]
+    same = torch.equal(u * x[idx], fd.dia_dvals_rows(offsets, x, u))
+    kernel(), library()
+    k5_s, k5_clock = device_seconds(kernel, reps=reps, device=DEVICE)
+    lib_s, lib_clock = device_seconds(library, reps=reps, device=DEVICE)
+    row.update(library_ms=1e3 * lib_s, library_call="u * x[idx]: a gather by a precomputed (D, n) index, then a "
+               "multiply", library_clock=lib_clock, ms_held_l2_cold=1e3 * k5_s, ms_held_clock=k5_clock)
+    print(f"  K5 library u * x[idx] (two calls, the index precomputed): {1e3 * lib_s:.4f} ms ({lib_clock}); K5 "
+          f"{1e3 * k5_s:.4f} ms ({k5_clock}), both L2-cold over {len(sets)} operand sets behind a held stream, "
+          f"{reps} calls; equal to K5 bit for bit {same}", flush=True)
+    if not same:
+        failures.append("K5 library")
+
+
 def phase_timing_sparse(slices):
     """Per-launch times of K4-K7 at the sparse slice's shapes; their kernels-line entries."""
     from lanczos_adjoints_tpu_torch.ops import fused_dia as fd
@@ -1691,6 +1872,7 @@ def phase_timing_sparse(slices):
            [lambda s=s: fd.dia_dvals_rows(offsets, s[0], s[2]) for s in sets],
            [lambda s=s: fd.dia_dvals_plain(offsets, s[0], s[2]) for s in sets],
            4 * (num_diags + 2) * n, num_diags * n, 48, 8, tols=(TOL_DVALS,))
+    _k5_library(rows[("K5", n)], offsets, sets, failures)
     del sets, csr
     for m in GRIDS:
         _mat, dia, vals = _laplacian(m)
@@ -4161,6 +4343,33 @@ def phase_study_multihost():
     return {"rows": rows, "launches": totals}
 
 
+def phase_study_mtx_parser(n=1_000_000, nnz_per_row=8):
+    """``studies.mtx_parser`` at the JAX script's defaults: the synthetic
+    ``.mtx`` file read by scipy, the port's C++ parser (``native/``, built
+    here by the host compiler) and numpy, the same CSR from all three (the
+    study raises otherwise), each path's MB/s. Host work on the machine
+    that holds the card: no tensor, no kernel."""
+    from lanczos_adjoints_tpu_torch import native
+    from lanczos_adjoints_tpu_torch.studies import mtx_parser
+
+    print(f"[study-mtx-parser] studies.mtx_parser --n {n} --nnz_per_row {nnz_per_row}: scipy (best of 3), the C++ "
+          f"parser (scipy off), numpy (native.DISABLE); file to CSR on the host", flush=True)
+    start = time.perf_counter()
+    library = native.build()
+    print(f"  parser library {library.name} ready in {time.perf_counter() - start:.2f} s", flush=True)
+    with tempfile.TemporaryDirectory() as out:
+        result = mtx_parser.main(["--n", str(n), "--nnz_per_row", str(nnz_per_row),
+                                  "--out", os.path.join(out, "mtx_parser.json")])
+    rates = result["mb_per_s"]
+    print(f"  {result['file_bytes'] / 1e6:.1f} MB, {result['nnz']} nnz after duplicates: scipy {rates['scipy']:.1f} "
+          f"MB/s, C++ {rates['native']:.1f} MB/s, numpy {rates['numpy']:.1f} MB/s; the three CSRs equal",
+          flush=True)
+    times = list(result["seconds"].values())
+    if not all(np.isfinite(t) and t > 0 for t in times) or result["nnz"] <= 0:
+        raise RuntimeError(f"study-mtx-parser: seconds {result['seconds']}, nnz {result['nnz']}")
+    return {k: v for k, v in result.items() if k != "csr"}
+
+
 def phase_slice_gp_report(results, driver):
     """``train.gp_report``'s table of the ``[slice-driver]`` run's files, its
     rows labelled with the card's name, and the figure where matplotlib is."""
@@ -4209,6 +4418,7 @@ def main() -> int:
         driver = _phase(phase_slice_driver, driver_out)
         _phase(phase_slice_gp_report, driver_out, driver)
     _phase(phase_slice_auto)
+    _phase(phase_slice_fixed)
     _phase(phase_parity_dgrads)
     dgrads = _phase(phase_slice_dgrads, N_TRAIN)
     entries = _phase(phase_timing, N_TRAIN, counts, dgrads, driver)
@@ -4244,6 +4454,7 @@ def main() -> int:
     entries.append(roofline)
     formats = _phase(phase_study_spmv_formats)
     multihost = _phase(phase_study_multihost)
+    _phase(phase_study_mtx_parser)
     main_arnoldi = arnoldi_runs[ARNOLDI_MAIN]["launches"]["fused"]
     # The studies' launches: one call per depth and series of the three
     # wall-time sweeps (K4-K7, K9), one matvec a size of the Gram study (K1),

@@ -27,6 +27,8 @@ Lanczos forward + adjoint VJP on a DIA operator:
 - ``studies``: the paper's studies (loss of orthogonality, VJP wall
                times against backprop, the Gram VJP, the MLL, the Gram
                matvec policies) on the card.
+- ``native``:  the MatrixMarket body parser in C++, built at first use by
+               the host compiler, that ``utils.exp_util`` reads with.
 """
 
 __version__ = "0.1.0"

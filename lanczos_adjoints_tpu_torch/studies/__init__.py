@@ -13,7 +13,9 @@ and formats into ``--out``:
 - ``value_and_grad_of_mll``: ``value_and_grad`` of the GP marginal
   likelihood under two Gram matvec policies;
 - ``gram_matvec``: the Gram matvec policies, the fused kernel K1 among
-  them, over N, with the table and the figure.
+  them, over N, with the table and the figure;
+- ``mtx_parser``: the MatrixMarket loader's three parsers (scipy, the C++
+  body parser of ``native``, numpy), from file to CSR, on the host.
 
 They are the paper's studies, not a benchmark of the port.
 """

@@ -24,8 +24,9 @@ The JAX driver's ``--split_step`` splits its step into three device
 calls, which sum to the one-call step; the port accepts it and computes
 the step in one graph, and takes ``--slq_host_batches`` from it, since
 the batches decide which probes a key draws and the ``slq_std_rels``
-series. Its ``predict_mean_split`` (a restarted PCG to the same
-tolerance) is not ported: ``predict_mean`` solves in one PCG.
+series. It also swaps the evaluation's one-PCG ``predict_mean`` for
+``predict_mean_split``, a PCG restarted from the true residual in chunks
+of ``--cg_maxiter`` steps, as the JAX driver does.
 ``--device`` (default ``cuda``) takes the place of ``--cpu``, and
 ``--out DIR`` that of the results directory mirrored from the script's
 path. ``JaxDraws`` holds the JAX ``adj400k`` run's own split and probes
@@ -301,8 +302,16 @@ def assemble(
     ``atol=1e-4, rtol=0, maxiter=10_000,
     miniter=10``. ``predict_mean(params, x, Xs, ys) -> (mean, {"solve":
     info})`` is the posterior mean at ``x`` given the training set, PCG
-    ``atol=1e-2, rtol=0, maxiter=10_000, miniter=10``. Both run without
-    a graph.
+    ``atol=1e-2, rtol=0, maxiter=10_000, miniter=10``.
+    ``predict_mean_split(params, x, Xs, ys, *, restarts=20, atol=1e-2)``
+    is the JAX driver's restarted solve of the same mean: one factor of
+    the preconditioner, then up to ``restarts`` times the true residual
+    ``r = ys - mean - (K w + noise w)`` (one Gram matvec), a stop once
+    ``||r|| / sqrt(N) <= atol``, else a chunk of PCG ``atol=1e-2, rtol=0,
+    maxiter=cg_maxiter, miniter=2`` on ``r`` added to ``w``; its info
+    holds the last chunk's ``"solve"`` and, beyond the JAX driver's,
+    each restart's ``"residual_rms"`` and each chunk's ``"chunk_steps"``.
+    All three run without a graph.
     """
     if slq not in ("blocked", "vmap"):
         msg = f"slq={slq!r}; choose 'blocked' or 'vmap'"
@@ -406,8 +415,40 @@ def assemble(
         )
         return postmean(x)
 
+    # The restarted posterior-mean solve (``_common.py:402-451``): chunks of
+    # at most ``cg_maxiter`` PCG steps, each solving for the correction
+    # from the true residual of the running iterate, with the same fixed point.
+    solve_chunk = cg.pcg_adaptive(atol=1e-2, rtol=0.0, maxiter=cg_maxiter, miniter=2)
+
+    @requires_float32
+    @torch.no_grad()
+    def predict_mean_split(params, x, Xs, ys, *, restarts=20, atol=1e-2):
+        p1, p2, p3 = gp.unflatten_params(params, ndim)
+        mean, kernel = prior(p1, p2)
+        noise = constrain(p3["raw_noise"])
+        cov = gp._CovarianceOp(policy, kernel, Xs)
+        chol, _info = cholesky(cov.elem, len(Xs))
+
+        def matvec(v):
+            return cov.matvec(v, *kernel.params) + noise * v
+
+        b = ys - mean(Xs)
+        w = torch.zeros((len(Xs),), dtype=Xs.dtype, device=Xs.device)
+        info, residual_rms, chunk_steps = {}, [], []
+        for _ in range(restarts):
+            r = b - matvec(w)
+            residual_rms.append(float(torch.linalg.vector_norm(r)) / math.sqrt(len(Xs)))
+            if residual_rms[-1] <= atol:
+                break
+            dw, info = solve_chunk(matvec, r, P=lambda v: low_rank.woodbury_solve(chol, v, noise))
+            chunk_steps.append(int(info["num_steps"]))
+            w = w + dw
+        predicted = mean(x) + cov.cross_matvec(x, w, *kernel.params)
+        return predicted, {"solve": info, "residual_rms": residual_rms, "chunk_steps": chunk_steps}
+
     return SimpleNamespace(
         mll_lanczos=mll_lanczos, mll_eval=mll_eval, predict_mean=predict_mean,
+        predict_mean_split=predict_mean_split,
         constrain=constrain, num_params=ndim + 3, rank=rank, mesh=mesh_, prior=prior,
     )
 
@@ -581,8 +622,9 @@ def run(args, *, solver_mode: str, params0=None, draws=None):
             checkpoint.save(ckpt_dir, epoch, _training_state(optimizer, key, series))
 
     params = optimizer.params.detach()
+    predict_mean = stack.predict_mean_split if args.split_step else stack.predict_mean
     t0 = time.perf_counter()
-    predicted, predict_info = stack.predict_mean(params, test_x, train_x, train_y)
+    predicted, predict_info = predict_mean(params, test_x, train_x, train_y)
     test_rmse = float(rmse(predicted, target=test_y))
     t1 = time.perf_counter()
     eval_key = key if draws is None else draws.eval_key(len(test_x))

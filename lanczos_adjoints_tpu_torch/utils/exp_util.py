@@ -5,9 +5,10 @@ Counterpart of ``lanczos_adjoints_tpu/utils/exp_util.py``: ``hilbert``,
 ``tree_random_like`` (its draws from a ``torch.Generator``),
 ``matching_directory``, ``mtx_read``, ``suite_sparse_load`` and
 ``plt_spy_coo``. ``mtx_read`` uses ``scipy.io.mmread`` when scipy is
-installed, a numpy body parser otherwise (the JAX package's C parser
-belongs to that package and is not used). Symmetric files are expanded to
-full storage; ``.gz`` and ``.tar.gz`` containers are read transparently.
+installed; otherwise it parses the body with the port's C++ parser
+(``native/mtxparse.cc``, built at first use), or with numpy while
+``native.DISABLE`` is set. Symmetric files are expanded to full storage;
+``.gz`` and ``.tar.gz`` containers are read transparently.
 ``suite_sparse_download`` and ``uci_dataset_mlrepo`` need the network and
 are not ported.
 """
@@ -19,6 +20,7 @@ import tarfile
 import numpy as np
 import torch
 
+from lanczos_adjoints_tpu_torch import native
 from lanczos_adjoints_tpu_torch.ops import sparse
 
 
@@ -162,17 +164,24 @@ def _mtx_read_builtin(path: str, /):
         pos += 1
     nrows, ncols, nnz = (int(t) for t in lines[pos].split()[:3])
 
-    body = [ln for ln in lines[pos + 1 :] if ln.strip() and not ln.startswith("%")]
-    entries = body[:nnz]
-    if field == "pattern":
-        arr = np.loadtxt(entries, dtype=np.int64, ndmin=2)
-        rows, cols = arr[:, 0] - 1, arr[:, 1] - 1
-        vals = np.ones(len(rows), dtype=np.float64)
+    has_values = field != "pattern"
+    mtxparse = native.get_mtxparse()
+    if mtxparse is not None:
+        # The C++ parser: one strtol/strtod sweep over the body.
+        body_text = "\n".join(lines[pos + 1 :])
+        rows, cols, vals = mtxparse.parse_body(body_text, nnz, has_values)
     else:
-        arr = np.loadtxt(entries, dtype=np.float64, ndmin=2)
-        rows = arr[:, 0].astype(np.int64) - 1
-        cols = arr[:, 1].astype(np.int64) - 1
-        vals = arr[:, 2] if arr.shape[1] > 2 else np.ones(len(rows))
+        body = [ln for ln in lines[pos + 1 :] if ln.strip() and not ln.startswith("%")]
+        entries = body[:nnz]
+        if not has_values:
+            arr = np.loadtxt(entries, dtype=np.int64, ndmin=2)
+            rows, cols = arr[:, 0] - 1, arr[:, 1] - 1
+            vals = np.ones(len(rows), dtype=np.float64)
+        else:
+            arr = np.loadtxt(entries, dtype=np.float64, ndmin=2)
+            rows = arr[:, 0].astype(np.int64) - 1
+            cols = arr[:, 1].astype(np.int64) - 1
+            vals = arr[:, 2] if arr.shape[1] > 2 else np.ones(len(rows))
 
     if symmetry in ("symmetric", "skew-symmetric", "hermitian"):
         off = rows != cols

@@ -220,8 +220,9 @@ def test_port_and_chip_smoke_import_no_jax():
     files = sorted((REPO / "lanczos_adjoints_tpu_torch").rglob("*.py"))
     studies = {p.stem for p in files if p.parent.name == "studies"}
     assert {"loss_of_orthogonality", "wall_times_vjp", "vjp_through_matvec", "value_and_grad_of_mll",
-            "gram_matvec"} <= studies, studies
+            "gram_matvec", "mtx_parser"} <= studies, studies
     assert REPO / "lanczos_adjoints_tpu_torch/train/gp_report.py" in files
+    assert REPO / "lanczos_adjoints_tpu_torch/native/__init__.py" in files
     files.append(REPO / "chip_smoke.py")
     scripts = sorted((REPO / "scripts").glob("torch_*.py"))
     assert len(files) > 10 and len(scripts) >= 2
