@@ -111,7 +111,17 @@ Phases, in order:
      float32 (Arnoldi depth 4 within 1 % of JAX's CPU value, every other
      error at most 1e-4) and float64 (the committed
      ``workprecision_x64_s1.json`` within 1 % above 1e-12, below 1e-12
-     where it is below), the committed float32 (TPU) file beside;
+     where it is below), the committed float32 (TPU) file beside; then
+     ``[slice-pde-diffrax]``: ``models.pde.solver_diffrax`` on the sweep's
+     problem at 128 x 128 (state 2 x 128 x 128), every method x adjoint at
+     16 and 64 steps in float32 and float64, against RK4 with 1,024 steps
+     in float64 (the step counts checked against each method's stability
+     on the imaginary axis; finite; ``recursive_checkpoint`` within 10x
+     the float32-vs-float64 spread of ``direct``; Dopri5, Tsit5 and Dopri8
+     within their float64 error plus 10x the reference's float32-vs-float64
+     spread, and within 1e-8 in float64; at 64 steps ``recursive_checkpoint`` and ``backsolve`` below
+     ``direct`` in peak memory; the evaluations counted and
+     ``num_matvecs``), with each pair's time by CUDA events;
  16. the data generator (``train.pde_data.run``) at 128 x 128 with 80 pairs
      from a generator (shapes, dtypes, finite), and RK4 from the bundled
      inputs and parameter missing the bundled targets by JAX's own miss
@@ -219,8 +229,8 @@ Phases, in order:
      and the model on the card, then the measured path on 1-16 partitions
      of one card, its dv and dvals within 10x the plain spread of the
      unsharded fused route, 60 K11 launches a VJP);
- 33. ``[study-mtx-parser]``: ``studies.mtx_parser`` at the JAX script's
-     defaults (1,000,000 rows, 8 entries each), the file read by scipy,
+ 33. ``[study-mtx-parser]``: ``studies.mtx_parser`` at 500,000 rows (the
+     JAX script's 1,000,000 cut in half) of 8 entries, the file read by scipy,
      the port's C++ parser (``native/mtxparse.cc``, built by the host
      compiler) and numpy into one CSR, each path's MB/s on the host. Every
      phase prints its wall time (``[phase-time]``). The kernels of every slice, with their
@@ -237,6 +247,7 @@ import ctypes
 import functools
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2455,6 +2466,27 @@ TOL_WP_DEPTH4 = 1e-2
 WP_F32_CEILING = 1e-4
 TOL_WP_F64 = 1e-2
 WP_F64_FLOOR = 1e-12
+# [slice-pde-diffrax]: the sweep's problem at the PDE driver's width, every
+# method and adjoint of solver_diffrax at two step counts, against the port's
+# RK4 with 1,024 steps (the sweep's reference step count at twice its width)
+# in float64. Route and accuracy gates take _spread_tol of a float32-vs-float64
+# spread (10x it, at least SPREAD_FLOOR): recursive_checkpoint against direct the spread of
+# the direct solve; the float32 errors of Dopri5, Tsit5 and Dopri8 (value,
+# direct and backsolve gradients) over their float64 errors at the same step
+# count the spread of the reference solve (the same solve's own spread would
+# make that bound hold by the triangle inequality). Their float64 errors stay
+# under DIFFRAX_F64_CEILING (a wrong tableau coefficient leaves a low-order
+# error far above it).
+DIFFRAX_RESOLUTION = 128
+DIFFRAX_STEPS = (16, 64)
+DIFFRAX_REFERENCE_STEPS = 1024
+DIFFRAX_ACCURATE = ("dopri5", "tsit5", "dopri8")
+DIFFRAX_F64_CEILING = 1e-8
+# Stable: no mode of the wave operator grows by more than this over the run.
+DIFFRAX_GROWTH_TOL = 1e-3
+# [study-mtx-parser]'s rows: the JAX script's 1,000,000 cut to 500,000 (a
+# 104 MB file) to make room for [slice-pde-diffrax] in the run's time.
+MTX_PARSER_ROWS = 500_000
 # make_data at 128 x 128: RK4 from the bundled inputs and parameter misses
 # the bundled targets by JAX's own miss (train/pde_s1.npz) within this.
 TOL_RK4_MISS = 1e-4
@@ -2606,6 +2638,163 @@ def phase_slice_pde_workprecision(resolution=64):
     if failures:
         raise RuntimeError(f"slice-pde-workprecision failed: {failures}")
     return runs
+
+
+def _growth(tableau, h_omega, grid=4_000):
+    """``max |R(i y)|`` over ``y`` in ``[0, h_omega]``: the most a step of the
+    tableau amplifies a mode of the (purely oscillatory) wave operator, whose
+    frequencies lie in ``[0, omega_max]``; ``R`` its stability polynomial."""
+    s = tableau.stages
+    a = np.zeros((s, s))
+    for i, row in enumerate(tableau.a):
+        a[i, :len(row)] = row
+    coefs, v = [1.0], np.ones(s)
+    for _ in range(s):
+        coefs.append(float(np.asarray(tableau.b) @ v))
+        v = a @ v
+    return float(np.abs(np.polyval(coefs[::-1], 1j * np.linspace(0.0, h_omega, grid))).max())
+
+
+def _grad_gap(run, other):
+    """The relative gap of ``run``'s gradient to ``other``'s."""
+    g = other["grad"].double()
+    return float(torch.linalg.vector_norm(run["grad"].double() - g) / torch.linalg.vector_norm(g))
+
+
+def _diffrax_run(solve_fn, y0, scale, vf):
+    """One ``mean(u(1)^2)`` and its gradient in ``scale``: value, gradient,
+    info, vector-field evaluations, ms by CUDA events, peak MiB above what
+    was allocated before."""
+    from lanczos_adjoints_tpu_torch.train import pde_workprecision as wp
+
+    calls = [0]
+
+    def counted(y, s):
+        calls[0] += 1
+        return vf(y, s)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    value, grad, info = wp.value_and_grad_of(solve_fn(counted), y0, scale)
+    stop.record()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    return {"value": value, "grad": grad, "info": info, "evals": calls[0], "ms": start.elapsed_time(stop),
+            "peak_mib": peak}
+
+
+def phase_slice_pde_diffrax(resolution=DIFFRAX_RESOLUTION, steps=DIFFRAX_STEPS):
+    """``models.pde.solver_diffrax`` (``models/_runge_kutta.py``, no kernel) on
+    the work-precision sweep's problem at ``resolution``: ``mean(u(1)^2)`` and
+    its gradient in ``scale`` for each method x adjoint at ``steps``, float32
+    and float64 on the card, against RK4 with ``DIFFRAX_REFERENCE_STEPS`` in
+    float64; the gates of the module docstring's item 15."""
+    from lanczos_adjoints_tpu_torch.models import _runge_kutta as rk
+    from lanczos_adjoints_tpu_torch.models import pde
+    from lanczos_adjoints_tpu_torch.ops import native
+    from lanczos_adjoints_tpu_torch.train import pde_workprecision as wp
+
+    dtypes = {"f32": torch.float32, "f64": torch.float64}
+    problems = {k: wp.problem(resolution, dtype=dt, device=DEVICE) for k, dt in dtypes.items()}
+    # The wave speed is scale^2; the 5-point Laplacian's largest eigenvalue 8 / dx^2.
+    omega_max = float(problems["f64"][1].max()) * math.sqrt(8.0) * (resolution - 1)
+    print(f"[slice-pde-diffrax] solver_diffrax on the sweep's problem at {resolution}x{resolution} "
+          f"(state 2x{resolution}x{resolution}), t * omega_max = {omega_max:.2f}, steps {steps}, against RK4 "
+          f"with {DIFFRAX_REFERENCE_STEPS} steps in float64 on {_card_line()}", flush=True)
+    failures, rows = [], []
+    native.reset_launches()
+    mode = _OnCard()
+    # Not timed: the first launches of each operator, each adjoint once.
+    warm_up = time.perf_counter()
+    with mode:
+        for adjoint in rk.ADJOINTS:
+            _diffrax_run(lambda f, adjoint=adjoint: pde.solver_diffrax(0.0, 1.0, f, num_steps=2, method="heun",
+                                                                       adjoint=adjoint), *problems["f32"])
+    print(f"  warm-up (each adjoint once at 2 steps, not timed): {time.perf_counter() - warm_up:.2f} s", flush=True)
+    with mode:
+        refs = {k: _diffrax_run(lambda f, k=k: wp.rk4(DIFFRAX_REFERENCE_STEPS, f, dtype=dtypes[k], device=DEVICE),
+                                *problems[k]) for k in dtypes}
+    ref = refs["f64"]
+
+    def value_err(run):
+        return abs(run["value"] - ref["value"]) / abs(ref["value"])
+
+    def grad_err(run):
+        return _grad_gap(run, ref)
+
+    ref_spread = {"value": value_err(refs["f32"]), "grad": grad_err(refs["f32"])}
+    print(f"  reference RK4 x {DIFFRAX_REFERENCE_STEPS}: value {ref['value']:.10e}, float32 vs float64 spread "
+          f"value {ref_spread['value']:.3e}, gradient {ref_spread['grad']:.3e}; {refs['f64']['ms']:.1f} ms "
+          f"(float64), {refs['f32']['ms']:.1f} ms (float32)", flush=True)
+    for method, tab in rk.TABLEAUX.items():
+        for n in steps:
+            growth = _growth(tab, omega_max / n) ** n
+            stable = growth <= 1.0 + DIFFRAX_GROWTH_TOL
+            print(f"  {method} x {n}: h * omega_max {omega_max / n:.3f}, largest growth of a mode over the run "
+                  f"{growth:.6g}: {'stable' if stable else 'not stable (gated on finite values only)'}", flush=True)
+            if method in DIFFRAX_ACCURATE and not stable:
+                failures.append(f"{method} x {n} not stable")
+    for method, tab in rk.TABLEAUX.items():
+        for n in steps:
+            runs = {}
+            for adjoint in rk.ADJOINTS:
+                for k in dtypes:
+                    # Float64 runs for the spread (direct) and the accuracy gates.
+                    if k == "f64" and (adjoint == "recursive_checkpoint" or
+                                       (adjoint == "backsolve" and method not in DIFFRAX_ACCURATE)):
+                        continue
+                    with mode:
+                        runs[adjoint, k] = _diffrax_run(
+                            lambda f, adjoint=adjoint: pde.solver_diffrax(0.0, 1.0, f, num_steps=n, method=method,
+                                                                          adjoint=adjoint), *problems[k])
+            spread = _grad_gap(runs["direct", "f32"], runs["direct", "f64"])
+            for adjoint in rk.ADJOINTS:
+                run = runs[adjoint, "f32"]
+                label = f"{method} x {n} {adjoint}"
+                finite = math.isfinite(run["value"]) and bool(torch.isfinite(run["grad"]).all())
+                want_evals = n * tab.stages * (1 if adjoint == "direct" else 2)
+                row = {"method": method, "steps": n, "adjoint": adjoint, "ms": run["ms"], "evals": run["evals"],
+                       "num_matvecs": run["info"]["num_matvecs"], "peak_mib": run["peak_mib"],
+                       "value_err": value_err(run), "grad_err": grad_err(run)}
+                line = (f"  {label}: {run['ms']:.1f} ms, {run['evals']} evaluations, num_matvecs "
+                        f"{row['num_matvecs']}, peak {run['peak_mib']:.2f} MiB, value err {row['value_err']:.3e}, "
+                        f"gradient err {row['grad_err']:.3e}")
+                checks = [(finite, "finite"), (run["evals"] == want_evals, f"evaluations {want_evals}"),
+                          (row["num_matvecs"] == n * tab.order, f"num_matvecs {n * tab.order}")]
+                if adjoint == "recursive_checkpoint":
+                    gap = _grad_gap(run, runs["direct", "f32"])
+                    tol = _spread_tol(spread)
+                    line += f"; vs direct {gap:.3e} (tol {tol:.3e}: 10x direct's f32-vs-f64 spread)"
+                    checks.append((gap <= tol, "vs direct"))
+                    if n == max(steps):
+                        checks.append((run["peak_mib"] < runs["direct", "f32"]["peak_mib"], "memory below direct"))
+                if adjoint == "backsolve" and n == max(steps):
+                    checks.append((run["peak_mib"] < runs["direct", "f32"]["peak_mib"], "memory below direct"))
+                if (adjoint, "f64") in runs:
+                    run64 = runs[adjoint, "f64"]
+                    row["value_err64"], row["grad_err64"] = value_err(run64), grad_err(run64)
+                    line += f"; float64 value err {row['value_err64']:.3e}, gradient err {row['grad_err64']:.3e}"
+                    if method in DIFFRAX_ACCURATE:
+                        tol_v = row["value_err64"] + _spread_tol(ref_spread["value"])
+                        tol_g = row["grad_err64"] + _spread_tol(ref_spread["grad"])
+                        line += f" (float32 tol {tol_v:.3e}, {tol_g:.3e}; float64 tol {DIFFRAX_F64_CEILING:.0e})"
+                        checks += [(row["value_err"] <= tol_v, "value err"), (row["grad_err"] <= tol_g, "gradient err"),
+                                   (max(row["value_err64"], row["grad_err64"]) <= DIFFRAX_F64_CEILING, "float64 err")]
+                    checks.append((math.isfinite(run64["value"]) and bool(torch.isfinite(run64["grad"]).all()),
+                                   "float64 finite"))
+                bad = [what for ok, what in checks if not ok]
+                print(f"{line} {'ok' if not bad else 'FAIL ' + ', '.join(bad)}", flush=True)
+                if bad:
+                    failures.append(f"{label}: {', '.join(bad)}")
+                rows.append(row)
+    mode.check("slice-pde-diffrax")
+    _no_kernel_launched("slice-pde-diffrax")
+    if failures:
+        raise RuntimeError(f"slice-pde-diffrax failed: {failures}")
+    return rows
 
 
 def phase_slice_pde_data(resolution=128, num_data=80):
@@ -4343,8 +4532,9 @@ def phase_study_multihost():
     return {"rows": rows, "launches": totals}
 
 
-def phase_study_mtx_parser(n=1_000_000, nnz_per_row=8):
-    """``studies.mtx_parser`` at the JAX script's defaults: the synthetic
+def phase_study_mtx_parser(n=MTX_PARSER_ROWS, nnz_per_row=8):
+    """``studies.mtx_parser`` at ``MTX_PARSER_ROWS`` rows (the JAX script's
+    1,000,000 cut in half) and its 8 entries a row: the synthetic
     ``.mtx`` file read by scipy, the port's C++ parser (``native/``, built
     here by the host compiler) and numpy, the same CSR from all three (the
     study raises otherwise), each path's MB/s. Host work on the machine
@@ -4432,6 +4622,7 @@ def main() -> int:
     _phase(phase_slice_pde)
     _phase(phase_slice_pde_driver)
     _phase(phase_slice_pde_workprecision)
+    _phase(phase_slice_pde_diffrax)
     _phase(phase_slice_pde_data)
     entries.append(_phase(phase_timing_arnoldi, arnoldi_runs))
     _phase(phase_parity_bsr)

@@ -14,8 +14,9 @@ solver runs the generic loop over it, on the card as in the JAX package.
 ``expm_arnoldi`` takes the small ``K x K`` exponential from
 ``torch.linalg.matrix_exp``, a different algorithm than
 ``jax.scipy.linalg.expm``'s Pade 13: the two agree to float32 rounding
-on the small, well-scaled matrices here. The diffrax solver is not
-ported (diffrax is a JAX library).
+on the small, well-scaled matrices here. ``solver_diffrax`` needs no
+diffrax: its five fixed-step explicit Runge-Kutta methods and three
+adjoints are the port's own (``models/_runge_kutta.py``).
 """
 
 import math
@@ -26,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from lanczos_adjoints_tpu_torch.krylov import arnoldi, lanczos
+from lanczos_adjoints_tpu_torch.models import _runge_kutta
 from lanczos_adjoints_tpu_torch.utils.precision import requires_float32
 
 
@@ -243,12 +245,31 @@ def solver_rk4(ts, vector_field, /):
 
 
 def solver_diffrax(t0, t1, vector_field, /, *, num_steps, method, adjoint):
-    """Not ported: diffrax is a JAX library (the JAX package gates it too)."""
-    msg = (
-        "solver_diffrax is not ported: it needs diffrax, a JAX library. Use "
-        "solver_euler or solver_expm(expm_arnoldi(...)) instead."
-    )
-    raise NotImplementedError(msg)
+    """``num_steps`` constant steps of an explicit Runge-Kutta method from
+    ``t0`` to ``t1``: ``solve(y0, p) -> (y1, {"num_matvecs": ...})``.
+
+    The JAX package's diffrax solver without diffrax: ``method`` is
+    ``"euler"``, ``"heun"``, ``"dopri5"``, ``"tsit5"`` or ``"dopri8"``,
+    ``adjoint`` is ``"direct"`` (autograd through the steps),
+    ``"recursive_checkpoint"`` (the same gradient from checkpointed
+    segments) or ``"backsolve"`` (the continuous adjoint, integrated
+    backwards); an unknown one raises ``KeyError``, as the JAX dict
+    lookups do. ``vector_field(y, p)`` takes no time; ``p`` is a tensor or
+    a tuple, list or dict of them. Device and dtype follow ``y0``.
+
+    ``num_matvecs`` is the JAX formula, ``num_steps * order`` with
+    diffrax's order (1, 2, 5, 5, 8), not the vector-field evaluations a
+    step, which are the stage counts 1, 2, 6, 6 and 13.
+    """
+    tableau = _runge_kutta.TABLEAUX[method]
+    integrate = _runge_kutta.ADJOINTS[adjoint]
+    dt0 = (float(t1) - float(t0)) / num_steps
+
+    def solve(y0, p):
+        y1 = integrate(tableau, vector_field, y0, p, dt0=dt0, num_steps=num_steps)
+        return y1, {"num_matvecs": num_steps * tableau.order}
+
+    return solve
 
 
 def solver_expm(t0, t1, vector_field, /, expm):

@@ -223,6 +223,7 @@ def test_port_and_chip_smoke_import_no_jax():
             "gram_matvec", "mtx_parser"} <= studies, studies
     assert REPO / "lanczos_adjoints_tpu_torch/train/gp_report.py" in files
     assert REPO / "lanczos_adjoints_tpu_torch/native/__init__.py" in files
+    assert REPO / "lanczos_adjoints_tpu_torch/models/_runge_kutta.py" in files
     files.append(REPO / "chip_smoke.py")
     scripts = sorted((REPO / "scripts").glob("torch_*.py"))
     assert len(files) > 10 and len(scripts) >= 2

@@ -224,11 +224,6 @@ def test_grf_sampler_reproduces_the_covariance():
     assert float(torch.linalg.norm(emp - cov) / torch.linalg.norm(cov)) < 0.35
 
 
-def test_diffrax_solver_is_not_ported():
-    with pytest.raises(NotImplementedError, match="diffrax"):
-        pde.solver_diffrax(0.0, 1.0, lambda y, p: y, num_steps=2, method="tsit5", adjoint="direct")
-
-
 def _jax_training_problem(resolution, method, num_matvecs=10):
     """The JAX training script's ``loss_fn`` (train.py:59-98), with its flax weights."""
     inputs, targets = (jnp.asarray(a) for a in train_pde.load_data(resolution, device="cpu"))
