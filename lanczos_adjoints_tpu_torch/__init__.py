@@ -23,7 +23,8 @@ Lanczos forward + adjoint VJP on a DIA operator:
 - ``train``:   the GP training step (Adam with non-finite steps skipped),
                also over a mesh.
 - ``utils``:   float32 pinning, the synthetic dataset, the in-repo
-               Laplacian and timing on the card.
+               Laplacian, timing on the card, and the spans recorded
+               while a profiler records.
 - ``studies``: the paper's studies (loss of orthogonality, VJP wall
                times against backprop, the Gram VJP, the MLL, the Gram
                matvec policies) on the card.

@@ -38,6 +38,7 @@ import torch
 
 from lanczos_adjoints_tpu_torch.krylov import arnoldi
 from lanczos_adjoints_tpu_torch.ops import fused_gram, native
+from lanczos_adjoints_tpu_torch.utils import spans
 from lanczos_adjoints_tpu_torch.utils.precision import requires_float32
 
 
@@ -92,6 +93,7 @@ def tridiag_block(matvec: Callable, krylov_depth: int, /, *, reortho="none", cus
 
 class _TridiagBlock(torch.autograd.Function):
     @staticmethod
+    @spans.spanned("slq.lanczos")
     def forward(ctx, matvec, krylov_depth, reortho, V, *params):
         (xs, (alphas, betas)), (x_res, beta_res), _ = _forward_block(
             matvec, krylov_depth, V, *params, reortho=reortho
@@ -104,6 +106,7 @@ class _TridiagBlock(torch.autograd.Function):
         return xs, alphas, betas, x_res, beta_res
 
     @staticmethod
+    @spans.spanned("slq.adjoint")
     def backward(ctx, dxs_head, dalphas, dbetas_head, dx_res, dbeta_res):
         xs_head, alphas, betas_head, x_res, beta_res, norms, *params = ctx.saved_tensors
         adjoint = (

@@ -35,6 +35,7 @@ import math
 import torch
 
 from lanczos_adjoints_tpu_torch.ops import native
+from lanczos_adjoints_tpu_torch.utils import spans
 
 PSCALE = {"rbf": 0.5, "matern12": 1.0, "matern32": 3.0}
 _KIND_ID = {"rbf": 0, "matern12": 1, "matern32": 2}
@@ -407,6 +408,7 @@ class _FusedGram(torch.autograd.Function):
         return out[:, 0] if v.ndim == 1 else out
 
     @staticmethod
+    @spans.spanned("gram.vjp")
     def backward(ctx, u):
         x, y, v, lengthscale, outputscale = ctx.saved_tensors
         kind = ctx.kind

@@ -42,6 +42,7 @@ import functools
 import torch
 
 from lanczos_adjoints_tpu_torch.ops import fused_dia, native
+from lanczos_adjoints_tpu_torch.utils import spans
 
 LANCZOS_FORWARD = native.Kernel("lanczos_dia_forward", "lanczos_dia", "lat_lanczos_dia_forward",
                                 device_symbol="lanczos_forward_kernel")
@@ -459,6 +460,7 @@ def lanczos_adjoint_dia(dia, krylov_depth: int):
 
 class _FusedLanczos(torch.autograd.Function):
     @staticmethod
+    @spans.spanned("lanczos.dia_forward")
     def forward(ctx, offsets, depth, v0, vals):
         v0, vals = v0.contiguous(), vals.contiguous()
         xs, alphas, betas = lanczos_forward_rows(offsets, vals, v0, depth)
@@ -469,6 +471,7 @@ class _FusedLanczos(torch.autograd.Function):
         return xs[:-1], alphas, betas[:-1], xs[-1], betas[-1]
 
     @staticmethod
+    @spans.spanned("lanczos.dia_adjoint")
     def backward(ctx, dxs_head, dalphas, dbetas_head, dx_res, dbeta_res):
         xs, alphas, betas, inv_norm, vals = ctx.saved_tensors
         dxs = torch.cat([dxs_head, dx_res[None]])

@@ -11,7 +11,9 @@ The build happens at the first launch of a kernel (or on
 kernel the package defines is registered in ``KERNELS``, the one place
 a run reads its launch counts from. ``device_symbol`` is the part of the
 ``__global__`` function's name that a profiler's kernel names contain,
-so that a run can hold the profiler's count to the registry's.
+so that a run can hold the profiler's count to the registry's. While a
+profiler records, ``utils.spans`` also counts each launch in the
+innermost open span.
 """
 
 import ctypes
@@ -23,6 +25,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from lanczos_adjoints_tpu_torch.utils import spans
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
@@ -190,6 +194,7 @@ class Kernel:
         fn = getattr(library(self.source), self.symbol)
         check(fn(*args), self.name)
         self.launches += 1
+        spans.launched(self.name)
 
 
 def reset_launches() -> None:

@@ -12,6 +12,8 @@ from typing import Callable
 
 import torch
 
+from lanczos_adjoints_tpu_torch.utils import spans
+
 
 class _WoodburySolve(torch.autograd.Function):
     @staticmethod
@@ -47,6 +49,7 @@ def preconditioner(cholesky: Callable, /) -> Callable:
     ``solve(v, s) ~= (s*I + L L^T)^{-1} v``; ``s`` is the noise/shift.
     """
 
+    @spans.spanned("precond.cholesky")
     def precondition(lazy_kernel: Callable, nrows: int, /):
         chol, info = cholesky(lazy_kernel, nrows)
         n_full, rank = chol.shape

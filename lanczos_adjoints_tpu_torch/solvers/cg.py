@@ -24,6 +24,7 @@ from typing import Callable
 import torch
 
 from lanczos_adjoints_tpu_torch.ops import fused_gram
+from lanczos_adjoints_tpu_torch.utils import spans
 from lanczos_adjoints_tpu_torch.utils.precision import requires_float32
 
 
@@ -157,7 +158,7 @@ def _implicit(pcg_impl: Callable) -> Callable:
 
     @requires_float32
     def pcg(A: Callable, b, *params, P: Callable):
-        with torch.no_grad():
+        with torch.no_grad(), spans.span("cg.solve"):
             x, info = pcg_impl(lambda v: A(v, *params), b, P)
         return _ImplicitSolve.apply(A, P, pcg_impl, x, b, *params), info
 
@@ -188,6 +189,7 @@ class _ImplicitSolve(torch.autograd.Function):
         return ctx.pcg_impl(lambda v: ctx.A(v, *params), rhs, ctx.P)[0]
 
     @staticmethod
+    @spans.spanned("cg.solve_adjoint")
     def backward(ctx, x_bar):
         x, *params = ctx.saved_tensors
         lam = _ImplicitSolve._solve(ctx, x_bar, params)  # symmetric: the transposed solve is the solve

@@ -51,7 +51,7 @@ from lanczos_adjoints_tpu_torch.precond import low_rank
 from lanczos_adjoints_tpu_torch.solvers import cg
 from lanczos_adjoints_tpu_torch.trace import hutchinson
 from lanczos_adjoints_tpu_torch.trace import slq as trace_slq
-from lanczos_adjoints_tpu_torch.utils import checkpoint, data, uci
+from lanczos_adjoints_tpu_torch.utils import checkpoint, data, spans, uci
 from lanczos_adjoints_tpu_torch.utils.precision import pin_float32, requires_float32
 
 NOISE_MINVAL = 1e-4
@@ -469,6 +469,7 @@ class AdamIfFinite:
         self.notfinite_count = 0
         self.total_notfinite = 0
 
+    @spans.spanned("gp.optimizer")
     def step(self) -> bool:
         """Apply the gradient in ``params.grad`` if allowed; return whether it was."""
         finite = bool(torch.all(torch.isfinite(self.params.grad)))
@@ -486,8 +487,10 @@ class AdamIfFinite:
 
 def train_step(stack, optimizer: AdamIfFinite, key, Xs, ys):
     """One Adam step on ``stack.mll_lanczos``: ``(loss, info, gradient, applied)``."""
-    value, info = stack.mll_lanczos(optimizer.params, key, Xs, ys)
-    value.backward()
+    with spans.span("gp.loss"):
+        value, info = stack.mll_lanczos(optimizer.params, key, Xs, ys)
+    with spans.span("gp.backward"):
+        value.backward()
     grad = optimizer.params.grad.detach().clone()
     applied = optimizer.step()
     return value.detach(), info, grad, applied

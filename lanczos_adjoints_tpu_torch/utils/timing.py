@@ -249,7 +249,9 @@ def slope_time(
 @contextlib.contextmanager
 def profile_to(log_dir: str):
     """Trace the block with ``torch.profiler`` (the card's kernels too, where one is
-    present) into ``{log_dir}/trace.json``, a Chrome trace."""
+    present) into ``{log_dir}/trace.json``, a Chrome trace. The port's spans
+    (``utils.spans``) are recorded meanwhile, as ``lat.*`` ranges in the
+    trace and in memory: ``spans.records()`` after the block."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
