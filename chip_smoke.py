@@ -265,8 +265,10 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS_3XTF32 = 495e12 / 3
 
 # Kernel-vs-plain tolerances on the card (max abs error over max |plain|).
-# Both sides compute the same direct-difference cells in float32; they
-# differ only in summation order and fused multiply-adds.
+# The plain side takes direct differences in float32. K1's direct route
+# differs from it only in summation order and fused multiply-adds; its
+# product route (rbf, matern32 at d <= 16) also by the rounding of
+# |x|^2 + |y|^2 - 2 x.y on centred rows (equal rows cancel exactly).
 TOL_K1 = 1e-4
 TOL_K2 = 1e-3  # sums over millions of cells of both signs
 # K3 (data gradients): ten times the JAX fused-kernel tests' value
@@ -421,10 +423,11 @@ def phase_parity(device="cuda", rows=(3001, 2777), kinds=("rbf", "matern12", "ma
                 tag = f"{kind} d={d} {'ard' if ard else 'scalar'}"
                 for m in (1, 15, 40):
                     v = torch.tensor(rng.standard_normal((n_cols, m)), dtype=torch.float32, device=device)
-                    got = fg.gram_matvec_rows(kind, xs, ys, v)
+                    got = _k1_routed(kind, xs, ys, v, failures)
                     want = fg.gram_matvec_plain(kind, xs, ys, v)
                     torch.cuda.synchronize()
-                    _report(f"K1 {tag} m={m}", _rel_err(got, want), TOL_K1, failures)
+                    _report(f"K1 {tag} m={m} ({fg.k1_route(kind, xs.shape[1])})", _rel_err(got, want), TOL_K1,
+                            failures)
                     if m == 40:
                         continue
 
@@ -468,40 +471,57 @@ def _wide_scale(d):
     return np.sqrt(d / 8) if d > 64 else 1.0
 
 
+def _k1_routed(kind, xs, ys, v, failures):
+    """K1 on prepared rows, failing the check unless it launched once, on
+    the route ``fg.k1_route`` gives for the family and width."""
+    from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
+
+    route = fg.k1_route(kind, xs.shape[1])
+    before = fg.k1_route_counts()
+    out = fg.gram_matvec_rows(kind, xs, ys, v)
+    moved = {r: c - before[r] for r, c in fg.k1_route_counts().items() if c != before[r]}
+    if moved != {route: 1}:
+        print(f"  K1 {kind} width {xs.shape[1]}: launched {moved}, not once on the {route} route FAIL", flush=True)
+        failures.append(f"K1 {kind} width {xs.shape[1]} route")
+    return out
+
+
 def _parity_k1_tails(kinds, failures):
     """K1's Gram values entry by entry (v = the identity), against the plain
     version's full-precision sqrt and exp, from p = 0 (y = x) to distances
     of ~30, where the values fall to ~1e-12 (Matern) and below."""
     from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
 
-    n_cols, d = 16, 8
-    y = torch.zeros((n_cols, d), device=DEVICE)
-    y[:, 0] = torch.linspace(0.0, 30.0, n_cols, device=DEVICE)
-    x = y.repeat(4, 1)  # rows at every distance from every column, p = 0 on the diagonal
-    x[n_cols:, 1] = torch.linspace(1e-4, 3.0, 3 * n_cols, device=DEVICE)
+    n_cols = 16
     eye = torch.eye(n_cols, device=DEVICE)
-    for kind in kinds:
-        for m in (1, n_cols):
-            one = torch.tensor(1.0, device=DEVICE)
-            xs, ys = fg.kernel_rows(x, one, kind), fg.kernel_rows(y, one, kind)
-            v = eye[:, :m].contiguous()
-            got = fg.gram_matvec_rows(kind, xs, ys, v)
-            want = fg.gram_matvec_plain(kind, xs, ys, v)
-            torch.cuda.synchronize()
-            live = want > 1e-30
-            rel = float(((got - want).abs()[live] / want[live]).max())
-            tiny = float(got[~live].abs().max()) if bool((~live).any()) else 0.0
-            _report(f"K1 tails {kind} m={m} (entrywise over {int(live.sum())} values > 1e-30, "
-                    f"min {float(want[live].min()):.2e}; max |K1| at the others {tiny:.1e}, limit 2e-30)",
-                    rel if tiny <= 2e-30 else float("inf"), TOL_K1, failures)
+    for d in (8, 16):  # both widths of the register kernels
+        y = torch.zeros((n_cols, d), device=DEVICE)
+        y[:, 0] = torch.linspace(0.0, 30.0, n_cols, device=DEVICE)
+        x = y.repeat(4, 1)  # rows at every distance from every column, p = 0 on the diagonal
+        x[n_cols:, 1] = torch.linspace(1e-4, 3.0, 3 * n_cols, device=DEVICE)
+        for kind in kinds:
+            for m in (1, n_cols):
+                one = torch.tensor(1.0, device=DEVICE)
+                xs, ys = fg.kernel_rows(x, one, kind), fg.kernel_rows(y, one, kind)
+                v = eye[:, :m].contiguous()
+                got = _k1_routed(kind, xs, ys, v, failures)
+                want = fg.gram_matvec_plain(kind, xs, ys, v)
+                torch.cuda.synchronize()
+                live = want > 1e-30
+                rel = float(((got - want).abs()[live] / want[live]).max())
+                tiny = float(got[~live].abs().max()) if bool((~live).any()) else 0.0
+                _report(f"K1 tails {kind} d={d} m={m} ({fg.k1_route(kind, d)}; entrywise over {int(live.sum())} "
+                        f"values > 1e-30, min {float(want[live].min()):.2e}; max |K1| at the others {tiny:.1e}, "
+                        f"limit 2e-30)", rel if tiny <= 2e-30 else float("inf"), TOL_K1, failures)
 
 
 def _parity_k1_split(failures, cases=((50_000, N_TRAIN, 8, (1, 15), 4096), (N_TEST, N_TRAIN, 8, (1,), 3_000),
-                                     (3_000, 20_000, 130, (15,), 3_000))):
+                                     (50_000, N_TRAIN, 16, (1,), 4096), (3_000, 20_000, 130, (15,), 3_000))):
     """K1 with its column split, the segments summed in the launch: at one of
-    8 row partitions of the main path's shape and at the posterior mean's
-    test-by-train shape (the first rows against the plain version), and on
-    wide rows (the staged kernel), bit for bit across two runs."""
+    8 row partitions of the main path's shape (d = 8 and 16) and at the
+    posterior mean's test-by-train shape (the first rows against the plain
+    version), and on wide rows (the staged kernel), bit for bit across two
+    runs."""
     from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
 
     g = torch.Generator(device=DEVICE).manual_seed(3)
@@ -513,11 +533,11 @@ def _parity_k1_split(failures, cases=((50_000, N_TRAIN, 8, (1, 15), 4096), (N_TE
         splits = fg.column_splits(n, n_cols, sms)
         for m in ms:
             v = torch.randn((n_cols, m), generator=g, device=DEVICE)
-            got = fg.gram_matvec_rows("matern32", xs, ys, v)
+            got = _k1_routed("matern32", xs, ys, v, failures)
             again = fg.gram_matvec_rows("matern32", xs, ys, v)
             want = fg.gram_matvec_plain("matern32", xs[:check_rows], ys, v)
             torch.cuda.synchronize()
-            tag = f"K1 {n} x {n_cols} d={d} m={m}, {splits} column segments"
+            tag = f"K1 {n} x {n_cols} d={d} m={m} ({fg.k1_route('matern32', xs.shape[1])}), {splits} column segments"
             _report(f"{tag} (first {check_rows} rows)", _rel_err(got[:check_rows], want), TOL_K1, failures)
             if splits < 2 or not torch.equal(got, again):
                 print(f"  {tag}: not split, or two runs differ FAIL", flush=True)
@@ -619,6 +639,7 @@ def phase_slice(n_train, epochs=2):
     epoch-0 loss, CG steps and ``slq_std_rels`` against the run's; the
     parameters and Adam's moments after epoch 1 against its checkpoint; the
     later losses against its curve."""
+    from lanczos_adjoints_tpu_torch.ops import fused_gram as fg
     from lanczos_adjoints_tpu_torch.ops import native
     from lanczos_adjoints_tpu_torch.train import gp as train_gp
 
@@ -689,8 +710,11 @@ def phase_slice(n_train, epochs=2):
             if count != int(draws.arrays["ckpt1_count"]):
                 failures.append(f"Adam's step count {count}")
     totals = [k.launches for k in gram]
-    print(f"  launches over {epochs} epochs: K1 {totals[0]}, K2 {totals[1]}; epoch wall times "
+    routes = fg.k1_route_counts()
+    print(f"  launches over {epochs} epochs: K1 {totals[0]} (by route {routes}), K2 {totals[1]}; epoch wall times "
           f"{[round(t, 3) for t in times]}")
+    if routes["product"] != totals[0]:
+        failures.append(f"K1 off the product route: {routes}")
     if failures:
         raise RuntimeError(f"slice failed: {failures}")
     return {"launches": totals, "per_step": per_step, "step_s": times, "gaps": gaps}

@@ -16,9 +16,17 @@ All take rows scaled by ``sqrt(pscale) / lengthscale`` (``PSCALE`` folds
 the family's distance factor into the data) and zero-padded to a width
 (``padded_width``: 8, 16, 32 or 64, or a multiple of 64 above 64, which
 the kernels take in chunks of 64 columns); ``outputscale`` multiplies
-the O(N) output. A wrapper
-launches its kernel for CUDA tensors and runs the plain PyTorch version
-of the same arithmetic for CPU tensors; there is no other path.
+the O(N) output. A wrapper launches its kernel for CUDA tensors and runs
+the plain PyTorch version for CPU tensors; there is no other path.
+
+K1 forms its squared distances by one of two routes (``k1_route``, from
+the family and the width): ``"product"``, for ``rbf`` and ``matern32`` at
+width 8 and 16, as ``|x|^2 + |y|^2 - 2 x.y`` with the product on the
+tensor cores (3xTF32) and the rows first centred on the columns' mean;
+``"direct"``, for ``matern12`` and every wider row, by direct differences.
+K2, K3 and every plain version take direct differences: the plain
+versions are the kernels' oracle on the card. ``k1_route_counts()``
+counts K1's launches by route.
 
 ``gram_matvec_fused(kind)`` wraps both in a ``torch.autograd.Function``:
 the forward pass runs K1, the backward pass runs K1 on the transposed
@@ -47,14 +55,17 @@ _PLAIN_CELLS = 1 << 26
 _VALUES_UNUSED = contextvars.ContextVar("fused_gram_values_unused", default=False)
 
 
+K1_ROUTES = ("direct", "product")  # route 0 and 1 of lat_gram_matvec
 GRAM_MATVEC = native.Kernel("gram_matvec", "gram_matvec", "lat_gram_matvec",
-                            device_symbol="gram_matvec_kernel")
+                            device_symbol="gram_matvec_kernel", routes=K1_ROUTES)
 GRAM_GRADS = native.Kernel("gram_grads", "gram_grads", "lat_gram_grads",
                            device_symbol="gram_grads_kernel")
 GRAM_DGRADS = native.Kernel("gram_dgrads", "gram_dgrads", "lat_gram_dgrads",
                             device_symbol="gram_dgrads_kernel")
 _GRADS_BLOCK_ROWS = 128  # rows per K2 block: kRows in csrc/gram_grads.cu
 # K1 (csrc/gram_matvec.cu): rows a block, and blocks an SM holds at once.
+# The product route's blocks hold 256 rows, 2 an SM: as many rows at once,
+# so the column split below serves both routes.
 K1_ROWS = 128
 K1_BLOCKS_PER_SM = 4
 # The column split takes at most this many segments, each at least this
@@ -99,6 +110,25 @@ def column_splits(n_rows: int, n_cols: int, sms: int) -> int:
     most = max(1, min(_SPLIT_MAX, n_cols // _SPLIT_MIN_COLS))
     best = max(fill(s) for s in range(1, most + 1))
     return min(s for s in range(1, most + 1) if fill(s) >= best - 1e-9)
+
+
+def k1_route(kind: str, width: int) -> str:
+    """How K1 forms the squared distances of rows of ``width`` columns.
+
+    ``"product"`` (``|x|^2 + |y|^2 - 2 x.y`` on the tensor cores) for
+    ``rbf`` and ``matern32`` at width 8 and 16. Its cancellation error
+    ``dp`` moves their values by at most about ``dp`` and ``dp / 2``.
+    ``"direct"`` (direct differences) for ``matern12``, whose value moves
+    by about ``dp / (2 sqrt(eps))`` near distance 0, and for every wider
+    row, which the kernel stages in chunks.
+    """
+    return "product" if kind != "matern12" and width in (8, 16) else "direct"
+
+
+def k1_route_counts() -> dict:
+    """K1's launches by route since ``native.reset_launches()``; they add
+    up to its launch count in the registry."""
+    return dict(GRAM_MATVEC.route_launches)
 
 
 def kernel_rows(arr, lengthscale, kind: str):
@@ -238,8 +268,16 @@ def gram_matvec_rows(kind, xs, ys, v2):
         raise ValueError(msg)
     if device.type == "cpu":
         return gram_matvec_plain(kind, xs, ys, v2)
+    route = k1_route(kind, width)
+    if route == "product":
+        # The product's rounding grows with |x|^2 + |y|^2, and a shift that
+        # rows and columns share leaves every distance as it was.
+        shift = ys.mean(dim=0)
+        xs, ys = xs - shift, ys - shift
+        # The product kernel copies v's rows 16 bytes at a time.
+        v2 = torch.nn.functional.pad(v2, (0, -m % 4)) if m % 4 else v2
     # The kernel stages rows by 16-byte copies.
-    xs, ys = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (xs, ys))
+    xs, ys, v2 = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (xs, ys, v2))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     splits = column_splits(n, n_cols, sms)
     out = torch.empty((n, m), dtype=torch.float32, device=device)
@@ -249,10 +287,10 @@ def gram_matvec_rows(kind, xs, ys, v2):
         counters = torch.zeros(-(-n // K1_ROWS), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         GRAM_MATVEC.launch(
-            _KIND_ID[kind], xs.data_ptr(), ys.data_ptr(), v2.data_ptr(), out.data_ptr(),
-            0 if partials is None else partials.data_ptr(),
+            _KIND_ID[kind], K1_ROUTES.index(route), xs.data_ptr(), ys.data_ptr(), v2.data_ptr(),
+            out.data_ptr(), 0 if partials is None else partials.data_ptr(),
             0 if counters is None else counters.data_ptr(),
-            n, n_cols, m, width, splits, native.stream(device),
+            n, n_cols, m, width, splits, native.stream(device), route=route,
         )
     return out
 

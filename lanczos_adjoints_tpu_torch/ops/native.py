@@ -52,7 +52,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # Every C entry point returns a cudaError_t as int (0 = success).
 _SIGNATURES = {
-    "gram_matvec": {"lat_gram_matvec": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)},
+    "gram_matvec": {"lat_gram_matvec": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)},
     "gram_grads": {"lat_gram_grads": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)},
     "gram_dgrads": {"lat_gram_dgrads": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)},
     "dia": {
@@ -176,10 +176,13 @@ class Kernel:
 
     Constructing one registers it in ``KERNELS``. ``launch`` is the only
     place that counts, and it counts only a launch that the C entry point
-    reported as accepted.
+    reported as accepted. A kernel with ``routes`` (the ways its C entry
+    can compute) also counts each launch under the route it was given, in
+    ``route_launches``; those counts add up to ``launches``.
     """
 
-    def __init__(self, name: str, source: str, symbol: str, *, device_symbol: str | None = None):
+    def __init__(self, name: str, source: str, symbol: str, *, device_symbol: str | None = None,
+                 routes: tuple = ()):
         if name in KERNELS:
             msg = f"kernel {name!r} is registered twice"
             raise ValueError(msg)
@@ -188,18 +191,22 @@ class Kernel:
         self.symbol = symbol
         self.device_symbol = device_symbol
         self.launches = 0
+        self.route_launches = dict.fromkeys(routes, 0)
         KERNELS[name] = self
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, route: str | None = None) -> None:
         fn = getattr(library(self.source), self.symbol)
         check(fn(*args), self.name)
         self.launches += 1
+        if route is not None:
+            self.route_launches[route] += 1
         spans.launched(self.name)
 
 
 def reset_launches() -> None:
     for kernel in KERNELS.values():
         kernel.launches = 0
+        kernel.route_launches = dict.fromkeys(kernel.route_launches, 0)
 
 
 def launch_counts() -> dict:

@@ -8,9 +8,13 @@ constant replaced, compiled into its own library in a temporary
 directory; the package's own build is left alone. It prints each
 variant's register count and time beside the chosen one's:
 
-- K1 (``gram_matvec.cu``): 2 m-tiles of 16 rows a warp (the kernel) or
-  4, at N = M = 400,000 and 50,000 x 400,000, d = 8, m = 1 and 15,
-  CUDA events, each result held to the plain version on its first rows;
+- K1 (``gram_matvec.cu``, ``--parent DIR``): the parent tree's K1 and
+  this one, parent, this, this, parent, at N = M = 400,000 and at
+  100,000 x 400,000 (the posterior mean's shape, 2 column segments),
+  d = 8, matern32, m = 1 and 15, CUDA events with the SM clock, each
+  result held to the plain version on its first 2,048 rows; with the
+  registers, stack and spill bytes of both builds' instantiations
+  (without ``--parent``, this tree's alone);
 - K10 (``bsr.cu``): 1, 2 (the kernel) or 4 float4 loads in flight a lane,
   at 4, 8 and 16 lanes a row, on the FEM test matrix (grid 24), device
   time from the profiler with 8 rotating vectors (warm) and with the L2
@@ -149,44 +153,81 @@ def build(source, edits, workdir):
     return ctypes.CDLL(str(lib)), regs
 
 
-def k1_variants(tmp, n=400_000):
+_K1_ENTRY = re.compile(r"(gram_matvec_kernel_\w+?)ILi(\d+)ELi(\d+)ELi(\d+)E")
+
+
+def k1_ptxas(report):
+    """``[(instantiation, registers, stack, spill stores, spill loads)]`` of
+    each K1 kernel in an ``nvcc -Xptxas -v`` report."""
+    rows, current, frame = [], None, (0, 0, 0)
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            match = _K1_ENTRY.search(line)
+            current = match and f"{match[1]}<{_KINDS[int(match[2])]}, {match[3]}, {match[4]}>"
+            frame = (0, 0, 0)
+        elif current and "bytes stack frame" in line:
+            frame = tuple(int(v) for v in re.findall(r"(\d+) bytes", line)[:3])
+        elif current and "Used" in line and "registers" in line:
+            rows.append((current, int(re.search(r"Used (\d+) registers", line)[1]), *frame))
+            current = None
+    return rows
+
+
+class _ParentK1:
+    """The parent's ``lat_gram_matvec`` (13 arguments: no route) at this
+    tree's column split, on rows as the parent's wrapper gave them."""
+
+    def __init__(self, fn, xs, ys, v):
+        fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        self.fn, self.xs, self.ys, self.v = fn, xs, ys, v
+        n, m = xs.shape[0], v.shape[1]
+        self.splits = fg.column_splits(n, ys.shape[0], torch.cuda.get_device_properties(0).multi_processor_count)
+        self.out = torch.empty((n, m), device="cuda")
+        self.partials = torch.empty((self.splits, n, m), device="cuda")
+        self.counters = torch.zeros(-(-n // fg.K1_ROWS), dtype=torch.int32, device="cuda")
+
+    def __call__(self):
+        self.counters.zero_()
+        native.check(self.fn(2, self.xs.data_ptr(), self.ys.data_ptr(), self.v.data_ptr(), self.out.data_ptr(),
+                             self.partials.data_ptr(), self.counters.data_ptr(), self.xs.shape[0],
+                             self.ys.shape[0], self.v.shape[1], self.xs.shape[1], self.splits,
+                             torch.cuda.current_stream().cuda_stream), "parent K1")
+        return self.out
+
+
+def k1_parent(tmp, parent, n=400_000, check_rows=2048):
+    """K1 at N = M = ``n`` and at ``n / 4`` x ``n``, d = 8, matern32, m = 1
+    and 15: the parent's kernel and this tree's wrapper, parent, this,
+    this, parent (this, this without ``parent``), each held to the plain
+    version on its first rows; the registers and spills of both builds."""
+    jobs = {"this": (native.CSRC / "gram_matvec.cu", tmp / "this_k1")}
+    if parent is not None:
+        jobs["parent"] = (parent / "lanczos_adjoints_tpu_torch" / "csrc" / "gram_matvec.cu", tmp / "parent_k1")
+    for _source, workdir in jobs.values():
+        workdir.mkdir(parents=True, exist_ok=True)
+    built = build_parallel(jobs)
+    for label, (_lib, report) in built.items():
+        for name, regs, stack, stores, loads in k1_ptxas(report):
+            print(f"K1 {label} {name}: {regs} registers, {stack} bytes stack, spills {stores}/{loads} bytes",
+                  flush=True)
     g = torch.Generator(device="cuda").manual_seed(2)
     xs = fg.kernel_rows(torch.randn((n, 8), generator=g, device="cuda"),
                         torch.full((8,), 0.9, device="cuda"), "matern32")
-    vs = {m: torch.randn((n, m), generator=g, device="cuda") for m in (1, 15)}
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    variants = {
-        "2 m-tiles a warp (the kernel)": (2, []),
-        "4 m-tiles a warp": (4, [("constexpr int R = 2;                    // m-tiles",
-                                  "constexpr int R = 4;                    // m-tiles"),
-                                 ("__launch_bounds__(kThreads, kBlocksPerSM)\n    gram_matvec_kernel_reg",
-                                  "__launch_bounds__(kThreads)\n    gram_matvec_kernel_reg")]),
-    }
-    for i, (label, (tiles, edits)) in enumerate(variants.items()):
-        lib, regs = build("gram_matvec.cu", edits, tmp / f"k1_{i}")
-        fn = lib.lat_gram_matvec
-        fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-        rows_per_block = 64 * tiles
-        print(f"K1 {label}: registers {regs}", flush=True)
-        for rows in (n, 50_000):
-            for m in (1, 15):
-                # The kernel's split rule, on this variant's count of row blocks.
-                blocks = -(-rows // rows_per_block)
-                splits = fg.column_splits(blocks * fg.K1_ROWS, n, sms)
-                out = torch.empty((rows, m), device="cuda")
-                part = torch.empty((splits, rows, m), device="cuda")
-
-                def run(rows=rows, m=m, out=out, part=part, blocks=blocks, splits=splits):
-                    counters = torch.zeros(blocks, dtype=torch.int32, device="cuda")
-                    native.check(fn(2, xs.data_ptr(), xs.data_ptr(), vs[m].data_ptr(), out.data_ptr(),
-                                    part.data_ptr(), counters.data_ptr(), rows, n, m, 8, splits,
-                                    torch.cuda.current_stream().cuda_stream), "variant")
-
-                run()
-                ms = events_ms(run, 2)
-                err = cs._rel_err(out[:2048], fg.gram_matvec_plain("matern32", xs[:2048], xs, vs[m]))
-                print(f"  {rows} x {n} m={m}, {splits} column segments: {ms:.3f} ms, "
-                      f"rel err {err:.2e} (first 2,048 rows)", flush=True)
+    order = ("parent", "this", "this", "parent") if parent is not None else ("this", "this")
+    for rows in (n, n // 4):
+        for m in (1, 15):
+            v = torch.randn((n, m), generator=g, device="cuda")
+            runs = {"this": lambda rows=rows, v=v: fg.gram_matvec_rows("matern32", xs[:rows], xs, v)}
+            if parent is not None:
+                runs["parent"] = _ParentK1(built["parent"][0].lat_gram_matvec, xs[:rows], xs, v)
+            want = fg.gram_matvec_plain("matern32", xs[:check_rows], xs, v)
+            errs = {label: cs._rel_err(run()[:check_rows], want) for label, run in runs.items()}
+            times = []
+            for label in order:
+                ms, clocks = cs._events_ms_clocked(runs[label], 2)
+                times.append(f"{label} {ms:.3f} ms ({clocks})")
+            print(f"K1 {rows} x {n} m={m}: " + ", ".join(times) + f"; rel err on the first {check_rows} rows: "
+                  + ", ".join(f"{label} {err:.2e}" for label, err in errs.items()), flush=True)
 
 
 def k10_variants(tmp):
@@ -1698,36 +1739,15 @@ def _arity(source, symbol):
     return params[:params.index(")")].count(",") + 1
 
 
-def parent_comparison(tmp, parent, n=400_000):
-    """K1 at N = M = 400,000 (m = 1, 15) and K10 on the FEM matrix (warm and
-    cold): the parent's kernels and this tree's, parent, this, this, parent."""
+def k10_parent(tmp, parent):
+    """K10 on the FEM matrix (warm and cold): the parent's kernel and this
+    tree's, parent, this, this, parent."""
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    csrc = parent / "lanczos_adjoints_tpu_torch" / "csrc"
-    arity = {name: _arity(csrc / f"{name}.cu", symbol)
-             for name, symbol in (("gram_matvec", "lat_gram_matvec"), ("bsr", "lat_bsr_spmv"))}
-    if arity != {"gram_matvec": 10, "bsr": 9}:
-        print(f"K1/K10 parent comparison skipped: it calls the tile-stream C interfaces (10 and 9 "
-              f"arguments), the parent's take {arity}", flush=True)
+    arity = _arity(parent / "lanczos_adjoints_tpu_torch" / "csrc" / "bsr.cu", "lat_bsr_spmv")
+    if arity != 9:
+        print(f"K10 parent comparison skipped: it calls the tile-stream C interface (9 arguments), the "
+              f"parent's takes {arity}", flush=True)
         return
-    old_k1 = build_parent(parent, "gram_matvec.cu", tmp / "parent_k1").lat_gram_matvec
-    old_k1.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-    g = torch.Generator(device="cuda").manual_seed(2)
-    xs = fg.kernel_rows(torch.randn((n, 8), generator=g, device="cuda"),
-                        torch.full((8,), 0.9, device="cuda"), "matern32")
-    for m in (1, 15):
-        v = torch.randn((n, m), generator=g, device="cuda")
-        out = torch.empty((n, m), device="cuda")
-        runs = {
-            "parent": lambda v=v, m=m, out=out: native.check(old_k1(
-                2, xs.data_ptr(), xs.data_ptr(), v.data_ptr(), out.data_ptr(), n, n, m, 8, stream()), "parent"),
-            "this": lambda v=v: fg.gram_matvec_rows("matern32", xs, xs, v),
-        }
-        for label in ("parent", "this"):
-            runs[label]()
-        times = [(label, events_ms(runs[label], 2)) for label in ("parent", "this", "this", "parent")]
-        print(f"K1 {n} x {n} m={m}: " + ", ".join(f"{label} {ms:.3f} ms" for label, ms in times)
-              + f"; clocks {cs._clocks()}", flush=True)
-
     old_k10 = build_parent(parent, "bsr.cu", tmp / "parent_k10").lat_bsr_spmv
     old_k10.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
     mat, bsr, tiles = cs._fem()
@@ -1771,7 +1791,7 @@ def main(argv) -> int:
     pin_float32()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        for sub in ("k1_0", "k1_1", "k10_1", "k10_2", "k10_4"):
+        for sub in ("k10_1", "k10_2", "k10_4"):
             (tmp / sub).mkdir()
         if args.parent is not None:
             if "k2" in only:
@@ -1792,8 +1812,8 @@ def main(argv) -> int:
                 k11_parent(tmp, args.parent)
                 if (args.parent / "chip_smoke.py").exists():
                     k11_paths(args.parent)
-            if only & {"k1", "k10"}:
-                parent_comparison(tmp, args.parent)
+            if "k10" in only:
+                k10_parent(tmp, args.parent)
         if args.breakdown:
             for kernel in ("k2", "k3"):
                 if kernel in only:
@@ -1823,7 +1843,7 @@ def main(argv) -> int:
                 k11_variants(tmp)
                 k11_host(tmp, args.parent)
         if "k1" in only:
-            k1_variants(tmp)
+            k1_parent(tmp, args.parent)
         if "k10" in only:
             k10_variants(tmp)
     return 0
